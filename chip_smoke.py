@@ -23,9 +23,11 @@ Phases, each failing the run on any mismatch:
      1e-12 near-tie dead-band); (b) 8 caches, the exhaustive subroutine,
      policies fno/fna/pi — the main path through the kernel (launch
      counts read around it), its results equal to the same run on the
-     CPU field for field; then the kernel's and plain version's times at
-     (b)'s table shape;
-  4. golden on the card: ``exhaustive_small`` and ``fig4_gradle`` equal to
+     CPU field for field; phase times are the engine's own
+     (``RunReport``); then the kernel's and plain version's times on the
+     main path's two table builds (fna, and fno with ``allowed``);
+  4. golden on the card: ``exhaustive_small`` (its fna_cal speculation
+     tables through the kernel too) and ``fig4_gradle`` equal to
      ``tests/golden/*.json`` bit for bit.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
@@ -167,47 +169,6 @@ def phase_kernel_checks(dev) -> None:
           "of 500 rows exact")
 
 
-def _phase_breakdown(cfg, trace, policies, want, dev):
-    """Phases 1-3 of the fast engine driven one by one (the same calls
-    ``run_policies`` makes), each timed to a device sync; every policy's
-    result must equal the main path's."""
-    from repro_torch.cachesim import SimResult, Simulator, SystemTrace
-    from repro_torch.cachesim.engine import TablePlan, plan_for
-    from repro_torch.cachesim.fastpath import accumulate_replay
-    t0 = time.perf_counter()
-    st = SystemTrace.compute(Simulator(cfg, dev), trace)
-    st.device_arrays()
-    sync()
-    times = {"phase1_s": time.perf_counter() - t0, "phase2_s": {},
-             "phase3_s": {}}
-    for p in policies:
-        pcfg = dataclasses.replace(cfg, policy=p)
-        sim = Simulator(pcfg, dev)
-        plan = plan_for(pcfg)
-        t0 = time.perf_counter()
-        if isinstance(plan, TablePlan):
-            st.plan_cache[plan.cache_key(pcfg)] = plan.tables(sim, st)
-            sync()
-            times["phase2_s"][p] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            selm = plan.selections(sim, st)
-        else:
-            selm = plan.selections(sim, st)
-            sync()
-            times["phase2_s"][p] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-        res = SimResult(policy=p)
-        st.add_quality(res)
-        st.add_advert(res)
-        accumulate_replay(res, st, selm, list(pcfg.costs),
-                          pcfg.miss_penalty)
-        sync()
-        times["phase3_s"][p] = time.perf_counter() - t0
-        check(dataclasses.asdict(res) == dataclasses.asdict(want[p]),
-              f"phase breakdown result != main path for {p}")
-    return st, times
-
-
 def _dead_band_rows(costs, rhos, M, allowed):
     """Relative gap between the two best DS_PGM prefix costs per row
     (host NumPy, the scalar path's arithmetic order)."""
@@ -259,6 +220,25 @@ def _compare_ds_pgm_tables(st, cfg) -> None:
               f"DS_PGM rows differ outside the {DEAD_BAND} dead-band")
 
 
+def _run_main_path(trace, cfg, policies, dev):
+    """``run_policies`` on the card with a ``RunReport`` (the engine's own
+    phase times, each ended by a device sync); returns (results, report,
+    wall seconds)."""
+    from repro_torch.cachesim import RunReport, run_policies
+    report = RunReport()
+    t0 = time.perf_counter()
+    res = run_policies(trace, cfg, policies, device=dev, report=report)
+    sync()
+    return res, report, time.perf_counter() - t0
+
+
+def _phases(report) -> str:
+    return json.dumps({"phase1_s": report.phase1_s,
+                       "prefetch_s": report.prefetch_s,
+                       "phase2_s": report.phase2_s,
+                       "phase3_s": report.phase3_s})
+
+
 def _print_results(tag, res, policies, card):
     for p in policies:
         print(f"[{tag}] {p}: mean_cost {res[p].mean_cost!r} "
@@ -276,14 +256,11 @@ def phase_slice(dev, card: str):
     cfg_a = SimConfig(n_caches=3, costs=(1.0, 2.0, 3.0), alg="ds_pgm",
                       **PAPER)
     pol_a = ("pi", "fno", "fna", "fna_cal")
-    t0 = time.perf_counter()
-    res_a = run_policies(trace, cfg_a, pol_a, device=dev)
-    sync()
-    total_a = time.perf_counter() - t0
-    st_a, times_a = _phase_breakdown(cfg_a, trace, pol_a, res_a, dev)
+    res_a, rep_a, total_a = _run_main_path(trace, cfg_a, pol_a, dev)
+    st_a = rep_a.system
     print(f"[slice a] n=3 ds_pgm: V={st_a.pi_v.shape[0]} table rows="
           f"{st_a.pi_v.shape[0] << 3}; run_policies {total_a:.3f} s; "
-          f"{json.dumps(times_a)} ({card})")
+          f"{_phases(rep_a)} ({card})")
     _print_results("slice a", res_a, pol_a, card)
     _compare_ds_pgm_tables(st_a, cfg_a)
 
@@ -292,18 +269,15 @@ def phase_slice(dev, card: str):
                       alg="exhaustive", **PAPER)
     pol_b = ("fno", "fna", "pi")
     ops.reset_launches()
-    t0 = time.perf_counter()
-    res_b = run_policies(trace, cfg_b, pol_b, device=dev)
-    sync()
-    total_b = time.perf_counter() - t0
+    res_b, rep_b, total_b = _run_main_path(trace, cfg_b, pol_b, dev)
     launches = dict(ops.LAUNCHES)
     print(f"[slice b] main path kernel launches: {json.dumps(launches)}")
     check(launches["subset_argmin"] > 0,
           "the exhaustive main path launched no subset_argmin kernel")
-    st_b, times_b = _phase_breakdown(cfg_b, trace, pol_b, res_b, dev)
+    st_b = rep_b.system
     v_b = st_b.pi_v.shape[0]
     print(f"[slice b] n=8 exhaustive: V={v_b} table rows={v_b << 8}; "
-          f"run_policies {total_b:.3f} s; {json.dumps(times_b)} ({card})")
+          f"run_policies {total_b:.3f} s; {_phases(rep_b)} ({card})")
     _print_results("slice b", res_b, pol_b, card)
     t0 = time.perf_counter()
     res_cpu = run_policies(trace, cfg_b, pol_b, device="cpu")
@@ -317,59 +291,103 @@ def phase_slice(dev, card: str):
     return st_b, cfg_b, launches
 
 
+def _popcount(x, n: int):
+    import torch
+    return ((x[:, None] >> torch.arange(n, device=x.device)) & 1).sum(1)
+
+
+def argmin_work(rhos, allowed):
+    """(operations, bytes) that ``subset_argmin`` needs on these inputs:
+    per allowed mask one multiply (a subset's product is its prefix's
+    times one rho, mask 0 needs none), one add and one compare — only the
+    subsets of ``allowed[b]`` where it is given; every input read once
+    (rhos, the 2^n cost vector, M, allowed) and the [B] output written
+    once."""
+    b, n = rhos.shape
+    k = 1 << n
+    masks = b * k if allowed is None else \
+        int((1 << _popcount(allowed, n)).sum())
+    ops = 3 * masks - b
+    nbytes = rhos.numel() * 8 + k * 8 + 8 + b * 8 + \
+        (0 if allowed is None else b * 8)
+    return ops, nbytes
+
+
+def prod_work(rhos):
+    """(operations, bytes) for ``subset_prod``: one multiply per non-empty
+    mask; rhos and M read once, the [B, 2^n] output written once."""
+    b, n = rhos.shape
+    k = 1 << n
+    return b * (k - 1), rhos.numel() * 8 + 8 + b * k * 8
+
+
+def bound(ops: int, nbytes: int):
+    """(least milliseconds, what bounds it) for this much work."""
+    t_ops = ops / PEAK_FP64_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def phase_kernel_times(st, cfg, launches, card: str):
-    """The kernel against its plain version at (b)'s table shape: the
-    [V * 256, 8] rho rows of the main path, CS_FNO ``allowed`` masks."""
+    """The kernel against its plain version on (b)'s main-path inputs: the
+    [V * 256, 8] rho rows of the fna table (no ``allowed``) and of the
+    fno table (CS_FNO ``allowed`` = each row's pattern), the two launches
+    the main path makes.  The record's times and bound are for the two
+    launches together."""
     import torch
     from repro_torch.core.batched import _pattern_rhos
     from repro_torch.kernels.subsetdp import ops, ref
     d = st.device_arrays()
     rhos = _pattern_rhos(d["pi"], d["nu"]).contiguous()
     b, n = rhos.shape
-    k = 1 << n
     dev = rhos.device
-    allowed = torch.arange(b, device=dev) % k
     costs = list(cfg.costs)
     M = cfg.miss_penalty
     cost = ops.subset_costs(costs, n, dev)
     mp = torch.as_tensor([M], dtype=torch.float64, device=dev)
     before = dict(ops.LAUNCHES)
-    kern = ops.subset_argmin(costs, rhos, M, allowed=allowed)
-    plain = ref.subset_argmin_ref(cost, rhos, mp, allowed)
-    err = int((kern - plain).abs().max())
-    check(err == 0, "subset_argmin != plain at the main path's shape")
-    ms = cuda_ms(lambda: ops.subset_argmin(costs, rhos, M, allowed=allowed),
-                 5)
-    plain_ms = cuda_ms(lambda: ref.subset_argmin_ref(cost, rhos, mp,
-                                                     allowed), 2)
-    flops = b * (n << (n - 1)) + b * k             # muls + adds needed
-    nbytes = b * n * 8 + k * 8 + 8 + b * 8 + b * 8  # rhos, cost, M, allowed, out
-    t_ops = flops / PEAK_FP64_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    print(f"[times] subset_argmin B={b} n={n}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-          f"({'operations' if t_ops >= t_bytes else 'bytes'}) ({card})")
+    total = dict(ms=0.0, plain_ms=0.0, ops=0, nbytes=0, err=0)
+    for policy, allowed in (("fna", None),
+                            ("fno", torch.arange(b, device=dev) % (1 << n))):
+        kern = ops.subset_argmin(costs, rhos, M, allowed=allowed)
+        plain = ref.subset_argmin_ref(cost, rhos, mp, allowed)
+        err = int((kern - plain).abs().max())
+        check(err == 0, f"subset_argmin != plain on (b)'s {policy} table")
+        ms = cuda_ms(lambda: ops.subset_argmin(costs, rhos, M,
+                                               allowed=allowed), 5)
+        plain_ms = cuda_ms(lambda: ref.subset_argmin_ref(cost, rhos, mp,
+                                                         allowed), 2)
+        n_ops, nbytes = argmin_work(rhos, allowed)
+        bound_ms, by = bound(n_ops, nbytes)
+        print(f"[times] subset_argmin {policy} table B={b} n={n}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+              f"ms ({by}; {n_ops} fp64 operations, {nbytes} bytes) ({card})")
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("ops", n_ops),
+                         ("nbytes", nbytes)):
+            total[key] += val
+        total["err"] = max(total["err"], err)
+    bound_ms, by = bound(total["ops"], total["nbytes"])
+    print(f"[times] subset_argmin, both launches: kernel {total['ms']:.4f} "
+          f"ms, plain {total['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({by}) ({card})")
     # subset_prod (validation counterpart, off the main path) at a slice
     # of the same rows: its [rows, 2^n] output is what the fused kernel
     # keeps out of device memory
     sub = rhos[: 1 << 18]
     prod_ms = cuda_ms(lambda: ops.subset_prod(sub, M), 5)
     prod_plain_ms = cuda_ms(lambda: ref.subset_prod_ref(sub, mp), 2)
-    pb = sub.shape[0]
-    p_ops = pb * (n << (n - 1)) / PEAK_FP64_FLOPS * 1e3
-    p_bytes = (pb * n * 8 + 8 + pb * k * 8) / PEAK_BYTES_PER_S * 1e3
-    print(f"[times] subset_prod B={pb} n={n}: kernel {prod_ms:.4f} ms, "
-          f"plain {prod_plain_ms:.4f} ms, bound {max(p_ops, p_bytes):.4f} ms "
-          f"({'operations' if p_ops >= p_bytes else 'bytes'}) ({card})")
+    p_bound, p_by = bound(*prod_work(sub))
+    print(f"[times] subset_prod B={sub.shape[0]} n={n}: kernel "
+          f"{prod_ms:.4f} ms, plain {prod_plain_ms:.4f} ms, bound "
+          f"{p_bound:.4f} ms ({p_by}) ({card})")
     check(dict(ops.LAUNCHES) != before, "timing runs launched no kernel")
     return {
         "name": "subsetdp.subset_argmin", "route": "cuda",
         "source": "src/repro_torch/kernels/subsetdp/csrc/subsetdp.cu",
         "replaces": "src/repro/kernels/subsetdp/subsetdp.py:41",
-        "launches": launches["subset_argmin"], "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
+        "launches": launches["subset_argmin"], "max_abs_err": total["err"],
+        "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
     }
 
 
@@ -386,7 +404,11 @@ GOLDEN = {
 
 
 def phase_golden(dev, card: str) -> None:
+    """Each policy run on its own, so the kernel launches of each are
+    read: with the exhaustive subroutine, fna/fno build their tables and
+    fna_cal its speculation tables through ``subset_argmin``."""
     from repro_torch.cachesim import SimConfig, get_trace, run_policies
+    from repro_torch.kernels.subsetdp import ops
     policies = ("fna", "fna_cal", "fno", "pi")
     trace = get_trace("gradle", 5_000, seed=1)
     for name, spec in GOLDEN.items():
@@ -394,10 +416,19 @@ def phase_golden(dev, card: str) -> None:
             (ROOT / "tests" / "golden" / f"{name}.json").read_text())
         check(payload["axis"] == "update_interval" and
               payload["n_requests"] == 5_000, f"{name}: unexpected file")
-        got = {v: run_policies(trace, SimConfig(update_interval=v,
-                                                **spec["base"]),
-                               policies, device=dev)
-               for v in spec["values"]}
+        got = {v: {} for v in spec["values"]}
+        launches = dict.fromkeys(policies, 0)
+        for v in spec["values"]:
+            cfg = SimConfig(update_interval=v, **spec["base"])
+            for p in policies:
+                ops.reset_launches()
+                got[v].update(run_policies(trace, cfg, (p,), device=dev))
+                launches[p] += ops.LAUNCHES["subset_argmin"]
+        if spec["base"].get("alg") == "exhaustive":
+            check(all(launches[p] > 0 for p in ("fna", "fna_cal", "fno")),
+                  f"{name}: a policy built its tables without the kernel")
+        print(f"[golden] {name}: subset_argmin launches per policy "
+              f"{json.dumps(launches)}")
         seen = 0
         for cell in payload["cells"]:
             res = got[cell["label"]][cell["policy"]]

@@ -12,6 +12,7 @@ ported yet.
 from repro_torch.cachesim.engine import (
     DecisionPlan,
     PROVIDERS,
+    RunReport,
     TablePlan,
     plan_for,
     prefetch_tables,
@@ -28,7 +29,7 @@ from repro_torch.cachesim.simulator import (
 from repro_torch.cachesim.systemstate import SystemTrace
 from repro_torch.cachesim.traces import TRACES, get_trace
 
-__all__ = ["DecisionPlan", "LRUCache", "PROVIDERS", "SimConfig",
-           "SimResult", "Simulator", "SystemTrace", "TRACES", "TablePlan",
-           "get_trace", "plan_for", "prefetch_tables", "register_provider",
-           "run_cells", "run_policies"]
+__all__ = ["DecisionPlan", "LRUCache", "PROVIDERS", "RunReport",
+           "SimConfig", "SimResult", "Simulator", "SystemTrace", "TRACES",
+           "TablePlan", "get_trace", "plan_for", "prefetch_tables",
+           "register_provider", "run_cells", "run_policies"]

@@ -42,6 +42,7 @@ device mesh are not ported yet (grid layer, later slice).
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -73,13 +74,6 @@ class DecisionPlan:
         committed (post-exploration) cache subset probed for each
         request, bit j = cache j."""
         raise NotImplementedError
-
-    def replay(self, sim, st, res):
-        """Phase 2+3: produce per-request selections for ``sim`` against
-        the shared sweep ``st`` and fold them into ``res``."""
-        from repro_torch.cachesim.fastpath import accumulate_replay
-        return accumulate_replay(res, st, self.selections(sim, st),
-                                 list(sim.cfg.costs), sim.cfg.miss_penalty)
 
 
 class TablePlan(DecisionPlan):
@@ -215,8 +209,8 @@ class ExhaustiveTables(TablePlan):
         cfg = sim.cfg
         d = st.device_arrays()
         return exhaustive_tables(list(cfg.costs), d["pi"], d["nu"],
-                                 cfg.miss_penalty, fno=(cfg.policy == "fno"),
-                                 backend="torch").reshape(-1)
+                                 cfg.miss_penalty,
+                                 fno=(cfg.policy == "fno")).reshape(-1)
 
 
 class ScalarTables(TablePlan):
@@ -379,9 +373,41 @@ def prefetch_tables(system, cfgs: Sequence, policies: Sequence[str]) -> None:
     _prefetch_ds_pgm(system, cfgs, policies)
 
 
+@dataclasses.dataclass
+class RunReport:
+    """What a fast-engine run observed, filled in when the caller passes
+    one to :func:`run_cells` / ``run_policies`` / ``Simulator.run``: the
+    system sweep it computed (the last one, when runs do not share it) and
+    the host seconds of each phase.  Every phase ends at a device sync so
+    its seconds include its device work; the syncs happen only when a
+    report is asked for.  Per-policy seconds add up across cells."""
+
+    system: Optional[object] = None
+    phase1_s: float = 0.0                     # system sweep (+ to device)
+    prefetch_s: float = 0.0                   # phase 2's stacked builds
+    phase2_s: Dict[str, float] = dataclasses.field(default_factory=dict)
+    phase3_s: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+    def since(self, t0: float, device: torch.device) -> float:
+        """Seconds from ``t0`` to now, after the device's work is done."""
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter() - t0
+
+    def add(self, phase: str, policy: str, t0: float,
+            device: torch.device) -> float:
+        """Add the seconds since ``t0`` to ``phase``'s entry for
+        ``policy``; returns the current time (the next phase's start)."""
+        per_policy = getattr(self, phase)
+        per_policy[policy] = per_policy.get(policy, 0.0) + \
+            self.since(t0, device)
+        return time.perf_counter()
+
+
 def run_cells(trace: np.ndarray, cfgs: Sequence, policies: Sequence[str],
               share_system: bool = True, *, device: DeviceLike = None,
-              chunk_size: Optional[int] = None, spill=None) -> List[Dict]:
+              chunk_size: Optional[int] = None, spill=None,
+              report: Optional[RunReport] = None) -> List[Dict]:
     """Run a policy panel over several decision-side cells that share one
     system evolution on ``device`` (``None`` -> ``cuda``); returns
     ``[{policy: SimResult}]`` aligned with ``cfgs``.
@@ -392,7 +418,8 @@ def run_cells(trace: np.ndarray, cfgs: Sequence, policies: Sequence[str],
     build is prefetched in one batched call per provider family.
     ``share_system=False`` forces independent full runs; the reference
     engine always runs full.  ``chunk_size``/``spill`` stream phase 1
-    (bit-identity-preserving, see ``SystemTrace.compute``).
+    (bit-identity-preserving, see ``SystemTrace.compute``).  ``report``
+    (optional) receives the sweep and the phase times.
     """
     from repro_torch.cachesim.simulator import Simulator
     from repro_torch.cachesim.systemstate import SystemTrace
@@ -404,15 +431,23 @@ def run_cells(trace: np.ndarray, cfgs: Sequence, policies: Sequence[str],
         all(cfg.engine == "fast" for cfg in cfgs)
     if share and any(plan_for(dataclasses.replace(cfg, policy=p)) is not None
                      for cfg in cfgs for p in policies):
+        t0 = time.perf_counter()
         system = SystemTrace.compute(Simulator(cfgs[0], device), trace,
                                      chunk_size=chunk_size, spill=spill)
+        system.device_arrays()
+        if report is not None:
+            report.system = system
+            report.phase1_s += report.since(t0, device)
+            t0 = time.perf_counter()
         prefetch_tables(system, cfgs, policies)
+        if report is not None:
+            report.prefetch_s += report.since(t0, device)
     for ci, cfg in enumerate(cfgs):
         for p in policies:
             sim = Simulator(dataclasses.replace(cfg, policy=p), device)
             out[ci][p] = sim.run(trace,
                                  system=system if share_system else None,
-                                 chunk_size=chunk_size)
+                                 chunk_size=chunk_size, report=report)
             if share_system and system is None:
                 system = getattr(sim, "last_system", None)
     return out

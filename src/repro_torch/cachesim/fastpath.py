@@ -22,6 +22,7 @@ only disagree when two prefix costs coincide to within ~1e-12.
 """
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -63,7 +64,10 @@ def accumulate_replay(res: SimResult, st: SystemTrace, selm: torch.Tensor,
 
 def run_fast(sim: Simulator, trace: np.ndarray, res: SimResult,
              system: Optional[SystemTrace] = None,
-             chunk_size: Optional[int] = None, spill=None) -> SimResult:
+             chunk_size: Optional[int] = None, spill=None,
+             report=None) -> SimResult:
+    """Phases 1-3 for one policy (``report``: an optional
+    ``repro_torch.cachesim.engine.RunReport`` receiving the phase times)."""
     from repro_torch.cachesim.engine import plan_for
     plan = plan_for(sim.cfg)
     if plan is None:
@@ -72,16 +76,32 @@ def run_fast(sim: Simulator, trace: np.ndarray, res: SimResult,
         return sim._run_reference(trace, res)
     if trace.shape[0] == 0:
         return res
+    policy = sim.cfg.policy
 
     # --- phase 1: the shared system sweep (or a reused artifact) --------
+    t0 = time.perf_counter()
     if system is None:
         system = SystemTrace.compute(sim, trace, chunk_size=chunk_size,
                                      spill=spill)
+        system.device_arrays()
+        if report is not None:
+            report.system = system
+            report.phase1_s += report.since(t0, sim.device)
+            t0 = time.perf_counter()
     else:
         system.install(sim, trace)
     sim.last_system = system
     system.add_quality(res)
     system.add_advert(res)
 
-    # --- phases 2-3: the decision plan ----------------------------------
-    return plan.replay(sim, system, res)
+    # --- phase 2: the decision plan's per-request selections ------------
+    selm = plan.selections(sim, system)
+    if report is not None:
+        t0 = report.add("phase2_s", policy, t0, sim.device)
+
+    # --- phase 3: replay -------------------------------------------------
+    accumulate_replay(res, system, selm, list(sim.cfg.costs),
+                      sim.cfg.miss_penalty)
+    if report is not None:
+        report.add("phase3_s", policy, t0, sim.device)
+    return res

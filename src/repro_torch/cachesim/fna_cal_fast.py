@@ -2,9 +2,11 @@
 
 A copy of the JAX package's ``repro.cachesim.fna_cal_fast`` over the
 port's ``repro_torch.core.batched``: like the reference, this engine is
-host NumPy throughout (its speculation tables and its <= 256-row
-verification segments are small and many); its committed selections
-replay on the device (``repro_torch.cachesim.engine.FnaCalSegmented``).
+host NumPy (its DS_PGM speculation tables and its <= 256-row verification
+segments are small and many), except that the exhaustive subroutine's
+(version x pattern) speculation tables go through the subset-DP kernel
+on the simulator's device; its committed selections replay on the device
+(``repro_torch.cachesim.engine.FnaCalSegmented``).
 
 ``fna_cal`` corrects the bit-counting FN inflation of Eq. (7) with
 empirical probe feedback: per-cache EWMAs of observed exclusion outcomes,
@@ -30,8 +32,8 @@ The engine speculates and commits:
      per-view-version tables are rebuilt from the frozen calibration
      state, the whole (version x pattern) batch in one
      ``repro_torch.core.batched`` call (``selection_tables`` backend="numpy" /
-     ``exhaustive_tables`` — the same float64 math as the verification
-     pass, so a correct speculation always verifies).
+     ``exhaustive_tables`` on the device — the same float64 math as the
+     verification pass, so a correct speculation always verifies).
   2. RECONSTRUCT the exact calibration-state trajectory the speculated
      probes imply: probe counts are integer cumsums; EWMA paths advance
      per (cache, branch) through :func:`repro_torch.core.estimator.ewma_path` —
@@ -190,9 +192,10 @@ def fna_cal_selections(sim, st: SystemTrace) -> np.ndarray:
     def build_tables(vids) -> dict:
         """2^n speculation tables from the frozen calibration state, one
         per view version — the whole (version x pattern) batch produced
-        by ONE ``repro_torch.core.batched`` call (``selection_tables`` /
-        ``exhaustive_tables``) instead of 2^n scalar ``mask_fn`` calls
-        per version.  The batched float64 rows match ``verify_fn``'s math
+        by ONE ``repro_torch.core.batched`` call (``selection_tables`` on
+        the host / ``exhaustive_tables`` through the subset-DP kernel on
+        ``st.device``) instead of 2^n scalar ``mask_fn`` calls per
+        version.  The batched float64 rows match ``verify_fn``'s math
         exactly, so speculation quality only improves; exactness is still
         owned by the verification pass and the scalar bridge."""
         from repro_torch.core.batched import exhaustive_tables, selection_tables
@@ -203,8 +206,9 @@ def fna_cal_selections(sim, st: SystemTrace) -> np.ndarray:
                       pi_emp[None, :], st.pi_v[vids])          # [m, n]
         rn = np.where(use_nu[None, :] | uninf_v[vids],
                       nu_emp[None, :], st.nu_v[vids])
-        if cfg.alg == "exhaustive":
-            flat = exhaustive_tables(costs, rp, rn, M).reshape(-1)
+        if cfg.alg == "exhaustive":      # the subset-DP kernel on the card
+            flat = exhaustive_tables(costs, rp, rn, M, device=st.device
+                                     ).reshape(-1).cpu().numpy()
         else:
             tab = selection_tables(costs, rp, rn, M, backend="numpy")
             flat = (tab.reshape(-1, n) @ pow2).astype(np.int64)

@@ -436,7 +436,7 @@ class Simulator:
 
     def run(self, trace: np.ndarray, result: Optional[SimResult] = None,
             system=None, chunk_size: Optional[int] = None,
-            spill=None) -> SimResult:
+            spill=None, report=None) -> SimResult:
         """Simulate ``trace``.  ``system`` optionally supplies a shared
         :class:`~repro_torch.cachesim.systemstate.SystemTrace` computed by an
         earlier fast run over the same (trace, system config) — the sweep
@@ -446,7 +446,9 @@ class Simulator:
         ``chunk_size``/``spill`` stream the fast engine's phase-1 sweep
         through fixed-size trace slices (bit-identical results, bounded
         working set — see ``SystemTrace.compute``); the per-request
-        reference loop is already O(1) in the trace and ignores both."""
+        reference loop is already O(1) in the trace and ignores both.
+        ``report`` (an optional ``repro_torch.cachesim.engine.RunReport``)
+        receives the fast engine's phase times."""
         cfg = self.cfg
         res = result or SimResult(policy=cfg.policy)
         trace = np.asarray(trace, dtype=np.uint64)
@@ -461,7 +463,8 @@ class Simulator:
             # reference loop transparently)
             from repro_torch.cachesim.fastpath import run_fast
             return run_fast(self, trace, res, system=system,
-                            chunk_size=chunk_size, spill=spill)
+                            chunk_size=chunk_size, spill=spill,
+                            report=report)
         return self._run_reference(trace, res)
 
     def _run_reference(self, trace: np.ndarray, res: SimResult) -> SimResult:
@@ -593,7 +596,8 @@ class Simulator:
 def run_policies(trace: np.ndarray, base: SimConfig,
                  policies: Sequence[str] = ("fna", "fno", "pi"),
                  share_system: bool = True,
-                 device: DeviceLike = None) -> Dict[str, SimResult]:
+                 device: DeviceLike = None,
+                 report=None) -> Dict[str, SimResult]:
     """Run several policies over the same trace (independent sim instances —
     cache dynamics are identical by construction) on ``device`` (``None``
     -> ``cuda``).
@@ -602,7 +606,9 @@ def run_policies(trace: np.ndarray, base: SimConfig,
     exactly once and every policy only pays its decision-plan/replay
     phase (the single-cell case of
     :func:`repro_torch.cachesim.engine.run_cells`).  Pass
-    ``share_system=False`` to force per-policy full runs (benchmarking)."""
+    ``share_system=False`` to force per-policy full runs (benchmarking).
+    ``report`` (an optional ``repro_torch.cachesim.engine.RunReport``)
+    receives the system sweep and the phase times."""
     from repro_torch.cachesim.engine import run_cells
     return run_cells(trace, [base], policies, share_system=share_system,
-                     device=device)[0]
+                     device=device, report=report)[0]

@@ -41,8 +41,6 @@ EPS = 1e-12
 # engine): n <= MAX_EXHAUSTIVE_TABLE_CACHES for the (version x pattern)
 # table build, n <= 16 for per-row enumeration (the kernel's limit).
 MAX_EXHAUSTIVE_TABLE_CACHES = 12
-#: float64 elements per NumPy exhaustive DP chunk (rows * 2^n); ~32 MB
-EXHAUSTIVE_CHUNK_ELEMS = 1 << 22
 
 
 def _left_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -322,43 +320,18 @@ def _check_table_n(n: int, name: str) -> None:
 
 
 def exhaustive_tables(costs, pi, nu, miss_penalty, *, fno: bool = False,
-                      chunk: int = None, backend: str = "numpy",
-                      device=None):
+                      device=None) -> torch.Tensor:
     """[V, 2^n] int64 selection bitmasks over ALL indication patterns for a
     batch of V view versions, with the EXHAUSTIVE subroutine
     (n <= ``MAX_EXHAUSTIVE_TABLE_CACHES``); ``fno=True`` restricts
     candidates to positive-indication caches.
 
-    ``backend="torch"`` builds the [V * 2^n, n] rho rows on ``device`` and
-    hands them to the fused ``subset_argmin`` in one call (the kernel
-    never materialises the [rows, 2^n] matrix; its plain version bounds
-    its own working set); the result is an int64 tensor there.
-    ``backend="numpy"`` is the host oracle, evaluated in ``chunk``-row
-    pieces (default ~``EXHAUSTIVE_CHUNK_ELEMS`` float64 elements).
-    """
-    if backend == "numpy":
-        pi = np.atleast_2d(np.asarray(pi, np.float64))
-        nu = np.atleast_2d(np.asarray(nu, np.float64))
-        v, n = pi.shape
-        _check_table_n(n, "exhaustive_tables")
-        k = 1 << n
-        if chunk is None:
-            chunk = max(1, EXHAUSTIVE_CHUNK_ELEMS // k)
-        pat_bits = (np.arange(k)[:, None] >> np.arange(n)[None, :]) & 1
-        rhos = np.where(pat_bits[None, :, :] > 0,
-                        pi[:, None, :], nu[:, None, :]).reshape(v * k, n)
-        allowed = np.tile(np.arange(k, dtype=np.int64), v) if fno else None
-        pow2 = (1 << np.arange(n)).astype(np.int64)
-        out = np.empty(v * k, np.int64)
-        for lo in range(0, v * k, chunk):
-            hi = min(lo + chunk, v * k)
-            mask = rho_exhaustive_tables(
-                costs, rhos[lo:hi], miss_penalty,
-                allowed=None if allowed is None else allowed[lo:hi])
-            out[lo:hi] = mask @ pow2
-        return out.reshape(v, k)
-    if backend != "torch":
-        raise ValueError(f"unknown backend {backend!r}")
+    Builds the [V * 2^n, n] rho rows on ``device`` (the tensors' own
+    device when they are tensors) and hands them to the fused
+    ``subset_argmin`` in one call — the kernel for CUDA tensors, which
+    never materialises the [rows, 2^n] matrix, its plain version (which
+    bounds its own working set) on the CPU.  The result is an int64
+    tensor there."""
     dev = tensor_device(pi, device)
     pi = torch.atleast_2d(f64(pi, dev))
     nu = torch.atleast_2d(f64(nu, dev))

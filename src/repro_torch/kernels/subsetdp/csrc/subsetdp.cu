@@ -23,17 +23,23 @@
 // caches share one view at the first view version; equal costs tie whole
 // subset sizes), so the reduction compares (value, mask) lexicographically.
 //
-// Bound.  fp64 compute: per row, sum_m popcount(m) = n * 2^(n-1) multiplies
-// plus 2^n adds (and compares), over only n * 8 bytes read (the rho row) and
-// 8 bytes written -- about 18 flop per byte at n = 8 and 275 at n = 12,
-// above the H100's fp64 ridge (34 TFLOP/s over 3.35 TB/s = 10 flop per
-// byte), so the fp64 rate bounds it (the B * 2^n * n multiplies of a
-// masked sweep that multiplies by 1.0 are not needed work).  This
-// first design keeps everything in registers and shared memory: one warp
-// per row (grid-stride over rows), the row's rho values staged once in
-// shared memory, lanes walk masks lane, lane + 32, ..., and a shuffle
-// reduction ends the row.  No HBM traffic beyond inputs/outputs; the
-// product chain is recomputed per mask (no prefix reuse) -- later work.
+// Bound.  The work a row needs is one multiply per mask (a subset's product
+// is the product of the subset without its highest bit times one rho, which
+// keeps the ascending order: 2^n - 1 multiplies), one add and one compare:
+// about 3 * 2^n fp64 operations over n * 8 bytes read (the rho row; 8 more
+// for ``allowed``) and 8 bytes written.  At n = 8 without ``allowed`` that
+// is 767 operations over 72 bytes, about 10.7 per byte, just above the
+// H100's fp64 ridge (34 TFLOP/s over 3.35 TB/s, about 10 per byte), so the
+// fp64 rate bounds it barely; with CS_FNO's ``allowed`` only the subsets of
+// the row's own pattern count (3^8 / 2^8, about 26 masks per row on
+// average over all patterns), and the bytes bound it.  This first design keeps
+// everything in registers and shared memory: one warp per row (grid-stride
+// over rows), the row's rho values staged once in shared memory, lanes walk
+// masks lane, lane + 32, ..., skipping denied masks, and a shuffle reduction
+// ends the row.  No HBM traffic beyond inputs and outputs, but each mask's
+// product chain is recomputed (n * 2^(n-1) multiplies instead of 2^n - 1)
+// and a lane whose masks are all denied idles -- prefix reuse and packing
+// several rows per warp are later work.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>

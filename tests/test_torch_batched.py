@@ -153,15 +153,9 @@ def test_exhaustive_tables_match_reference(n, fno):
     costs = rng.uniform(0.05, 5.0, n)
     M = 250.0
     want = rb.exhaustive_tables(costs, pi, nu, M, fno=fno)
-    got = tb.exhaustive_tables(costs, pi, nu, M, fno=fno, backend="torch",
-                               device=CPU)
+    got = tb.exhaustive_tables(costs, pi, nu, M, fno=fno, device=CPU)
     assert got.dtype == torch.int64
     assert np.array_equal(got.numpy(), want)
-    assert np.array_equal(tb.exhaustive_tables(costs, pi, nu, M, fno=fno),
-                          want)
-    # chunk boundaries never enter the host arithmetic
-    assert np.array_equal(
-        tb.exhaustive_tables(costs, pi, nu, M, fno=fno, chunk=97), want)
 
 
 @pytest.mark.parametrize("fno", [False, True])

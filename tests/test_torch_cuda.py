@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.cachesim import SimConfig, get_trace, run_policies
+from repro_torch.cachesim import SimConfig, Simulator, get_trace, run_policies
 from repro_torch.core.batched import _subset_dp
 from repro_torch.kernels.subsetdp import ops, ref
 
@@ -85,3 +85,18 @@ def test_exhaustive_simulation_card_equals_cpu(card):
     want = run_policies(trace, cfg, policies, device="cpu")
     for p in policies:
         assert dataclasses.asdict(got[p]) == dataclasses.asdict(want[p]), p
+
+
+@pytest.mark.cuda
+def test_fna_cal_exhaustive_launches_kernel_on_card(card):
+    """The calibrated policy's exhaustive speculation tables are built by
+    the kernel on the card; the result equals the CPU run's."""
+    trace = get_trace("gradle", 8_000, seed=3)
+    cfg = SimConfig(n_caches=5, costs=(1.0, 2.0, 3.0, 1.5, 2.5),
+                    cache_size=800, update_interval=150, alg="exhaustive",
+                    policy="fna_cal")
+    ops.reset_launches()
+    got = Simulator(cfg, card).run(trace)
+    assert ops.LAUNCHES["subset_argmin"] > 0
+    want = Simulator(cfg, "cpu").run(trace)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)

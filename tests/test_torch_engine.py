@@ -12,7 +12,10 @@ reference and its committed golden results.
     requests, n = 5, both subroutines, four policies): identical results;
   * the port's phase-1 ``to_arrays()`` equals the reference's, and the
     port's phases 2-3 replayed on the reference's own phase-1 payload
-    (``SystemTrace.from_reference_arrays``) equal the reference's replay.
+    (``SystemTrace.from_reference_arrays``) equal the reference's replay;
+  * the calibrated policy's exhaustive speculation tables go through the
+    subset-DP entry point, and a ``RunReport`` records a run's phases
+    without changing its results.
 """
 import dataclasses
 import json
@@ -28,9 +31,10 @@ from repro.cachesim import run_policies as ref_run_policies
 from repro.cachesim.scenarios import GOLDEN_SCENARIOS
 from repro.cachesim.sweep import cell_label, cell_overrides, hashable_label
 from repro.cachesim.systemstate import SystemTrace as RefSystemTrace
-from repro_torch.cachesim import (SimConfig, SimResult, Simulator,
-                                  SystemTrace, get_trace, run_cells,
-                                  run_policies)
+from repro_torch.cachesim import (RunReport, SimConfig, SimResult,
+                                  Simulator, SystemTrace, get_trace,
+                                  run_cells, run_policies)
+from repro_torch.kernels.subsetdp import ref as subsetdp_ref
 
 GOLDEN_DIR = Path(__file__).parent / "golden"
 FLAT_GOLDEN = tuple(n for n in GOLDEN_SCENARIOS
@@ -185,3 +189,41 @@ def test_replay_on_reference_phase1_equals_reference_replay(alg):
         want = RefSimulator(RefSimConfig(**pkw)).run(trace, system=ref_st)
         got = Simulator(SimConfig(**pkw), "cpu").run(trace, system=st)
         _assert_same(got, want, (alg, p))
+
+
+def test_fna_cal_exhaustive_tables_go_through_subset_argmin(monkeypatch):
+    """fna_cal with the exhaustive subroutine builds its speculation tables
+    through ``subset_argmin`` (the kernel on a card, its plain version
+    here), and still equals the JAX fast engine."""
+    calls = []
+    plain = subsetdp_ref.subset_argmin_ref
+
+    def counted(*args, **kw):
+        calls.append(args[1].shape[0])
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(subsetdp_ref, "subset_argmin_ref", counted)
+    trace = get_trace("gradle", 6_000, seed=4)
+    kw = dict(_direct_cfg("exhaustive"), policy="fna_cal")
+    got = Simulator(SimConfig(**kw), "cpu").run(trace)
+    want = RefSimulator(RefSimConfig(**kw)).run(trace)
+    assert calls and all(rows % (1 << 5) == 0 for rows in calls)
+    _assert_same(got, want, "fna_cal exhaustive")
+
+
+@pytest.mark.parametrize("share_system", [True, False])
+def test_run_report_records_phases_without_changing_results(share_system):
+    trace = get_trace("gradle", 5_000, seed=6)
+    cfg = SimConfig(**_direct_cfg("exhaustive"))
+    report = RunReport()
+    got = run_policies(trace, cfg, POLICIES, share_system=share_system,
+                       device="cpu", report=report)
+    want = run_policies(trace, cfg, POLICIES, share_system=share_system,
+                        device="cpu")
+    for p in POLICIES:
+        _assert_same(got[p], want[p], p)
+    assert report.system.trace_len == trace.shape[0]
+    assert report.phase1_s > 0.0
+    assert set(report.phase2_s) == set(report.phase3_s) == set(POLICIES)
+    assert all(s >= 0.0 for s in (*report.phase2_s.values(),
+                                  *report.phase3_s.values()))
