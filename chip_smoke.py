@@ -9,8 +9,9 @@ It imports nothing of JAX or of the JAX package, and exits non-zero
 (printing no result) without a CUDA device or outside a checkout.
 Phases, each failing the run on any mismatch:
 
-  1. build the subset-DP CUDA kernel from ``src/repro_torch/kernels/
-     subsetdp/csrc/subsetdp.cu`` (nvcc, sm_90a) and print the card;
+  1. build the CUDA kernels, one nvcc per source, all started together
+     (``src/repro_torch/kernels/subsetdp/csrc/subsetdp.cu`` and
+     ``kernels/bloom/csrc/bloom.cu``, sm_90a), and print the card;
   2. hold the kernel against its plain PyTorch version on the card:
      ``subset_prod`` byte for byte at n in {4, 8, 12} (rho in {0, 1},
      ragged row counts), ``subset_argmin`` exactly with and without
@@ -26,7 +27,21 @@ Phases, each failing the run on any mismatch:
      CPU field for field; phase times are the engine's own
      (``RunReport``); then the kernel's and plain version's times on the
      main path's two table builds (fna, and fno with ``allowed``);
-  4. golden on the card: ``exhaustive_small`` (its fna_cal speculation
+  4. the router tier, its launch counts read around the main drive:
+     (c1) the paper shape — 8 indicators of 10,000 keys at bpe 14
+     (m = 140,000 bits, k = 10) probed with all 1M gradle requests;
+     (c2) the fleet shape — 16 nodes of capacity 40M at bpe 14 (70 MB
+     indicators, 1.12 GB of bitmaps), advertised content shifted from the
+     current one by 10% churn, 2^20 keys probed against the stale and the
+     fresh bitmaps, the measured (q, fp, fn) fed with the indications into
+     ``cs_fna_batched``/``cs_fno_batched`` on the card; the kernel equals
+     its plain version on every output, fresh members show no false
+     negative; (c3) slice (b)'s own indication patterns and end-of-run
+     estimates decided on the card and on the CPU at float32 and float64,
+     differing rows only inside the stated dead-bands; the kernel's and
+     plain version's times at (c1) and (c2); and the ``--replay`` serving
+     entry point once per regime;
+  5. golden on the card: ``exhaustive_small`` (its fna_cal speculation
      tables through the kernel too) and ``fig4_gradle`` equal to
      ``tests/golden/*.json`` bit for bit.
 
@@ -41,6 +56,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -53,6 +69,24 @@ PAPER = dict(cache_size=10_000, update_interval=1_000, bpe=14.0,
              est_interval=50, miss_penalty=100.0, seed=0)
 N_REQUESTS = 1_000_000
 DEAD_BAND = 1e-12
+#: float32 router decisions: relative gap between the two best prefix
+#: costs inside which card and CPU may choose differently.  float32 keeps
+#: 24 bits (6e-8 relative); CPU and CUDA ``log``/``exp`` may differ by ~2
+#: ulps each, and a prefix cost folds up to 8 such terms, so ~1e-6; ten
+#: times that leaves margin without hiding a real disagreement.
+DEAD_BAND_F32 = 1e-5
+#: H100 SXM integer issue: 132 SMs x 64 INT32 lanes x 1.98 GHz boost —
+#: derived from the SM layout; the data sheet gives no INT32 rate
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
+L2_BYTES = 50e6
+#: the router's indicator budget (bits per element) and k = optimal_k(14)
+ROUTER_BPE = 14.0
+#: (c1) the paper shape: n indicators of ``keys`` trace keys each
+PAPER_ROUTER = dict(n=8, keys=10_000)
+#: (c2) benchmarks/run.py router_bench's 16-node fleet at capacity 40M,
+#: 10% churn between the advertised and the current content, 2^20 keys
+FLEET = dict(n=16, capacity=40_000_000, churn=4_000_000, batch=1 << 20,
+             miss_penalty=100.0)
 
 
 class SmokeFailure(AssertionError):
@@ -94,13 +128,19 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def phase_build(card: str) -> float:
-    from repro_torch.kernels.subsetdp import build
+    """Every kernel source built at once (one nvcc each), then loaded."""
+    from repro_torch.kernels.bloom import build as bloom_build
+    from repro_torch.kernels.subsetdp import build as subsetdp_build
+    builds = (subsetdp_build, bloom_build)
     t0 = time.perf_counter()
-    build.build(verbose=True)
-    build.load()
+    with ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda b: b.build(verbose=True), builds))
+    for b in builds:
+        b.load()
     secs = time.perf_counter() - t0
-    print(f"[build] subsetdp.cu -> {build.library_path().name} in "
-          f"{secs:.2f} s ({card})")
+    names = ", ".join(f"{b.SOURCE.name} -> {b.library_path().name}"
+                      for b in builds)
+    print(f"[build] {names} in {secs:.2f} s ({card})")
     return secs
 
 
@@ -321,9 +361,10 @@ def prod_work(rhos):
     return b * (k - 1), rhos.numel() * 8 + 8 + b * k * 8
 
 
-def bound(ops: int, nbytes: int):
-    """(least milliseconds, what bounds it) for this much work."""
-    t_ops = ops / PEAK_FP64_FLOPS * 1e3
+def bound(ops: int, nbytes: int, peak_ops: float = PEAK_FP64_FLOPS):
+    """(least milliseconds, what bounds it) for this much work at
+    ``peak_ops`` operations per second."""
+    t_ops = ops / peak_ops * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -391,6 +432,239 @@ def phase_kernel_times(st, cfg, launches, card: str):
     }
 
 
+def _probe_needs(bits, keys, k: int, seeds=None):
+    """What ``bloom_probe`` needs on this run's data (plain torch on the
+    inputs' device): the probes each (key, cache) makes up to its first
+    zero bit, and the distinct 32-byte bitmap sectors those probes touch."""
+    import torch
+    from repro_torch.kernels.bloom import ref
+    n, mbytes = bits.shape
+    seeds = list(range(n)) if seeds is None else seeds
+    h2 = ref.hash_h2(ref.as_u32(keys))
+    probes, sectors = 0, []
+    for j in range(n):
+        idx = ref.hash_idx(keys, k, mbytes * 8, seeds[j], h2=h2)
+        bit = (bits[j][idx >> 3].to(torch.int64) >> (idx & 7)) & 1
+        need = torch.cumprod(torch.cat([torch.ones_like(bit[:, :1]),
+                                        bit[:, :-1]], dim=1), dim=1) > 0
+        probes += int(need.sum())
+        sectors.append(((j * mbytes + (idx >> 3)) >> 5)[need])
+    return probes, int(torch.unique(torch.cat(sectors)).numel())
+
+
+def bloom_work(bits, keys, k: int, seeds=None):
+    """(operations, bytes) that ``bloom_probe`` needs on these inputs.
+    Operations as ``kernels/bloom/ref.py``'s formula counts them, one per
+    operator: 10 per key for h2 (xor, mix32's three xor-shifts and two
+    multiplies, or), 9 per (key, cache) for h1, and 8 per probe made up to
+    the first zero bit (multiply, add, modulo, shift, mask, shift, mask,
+    and).  Bytes: keys and seed words read once, the [B, n] int8 output
+    written once, and the bitmaps — each byte once where they all fit in
+    L2, else one 32-byte sector per distinct sector the needed probes
+    touch."""
+    n, _ = bits.shape
+    b = keys.shape[0]
+    probes, sectors = _probe_needs(bits, keys, k, seeds)
+    ops = 10 * b + 9 * b * n + 8 * probes
+    bitmap = bits.numel() if bits.numel() <= L2_BYTES else 32 * sectors
+    nbytes = keys.numel() * keys.element_size() + 8 * n + b * n + bitmap
+    return ops, nbytes
+
+
+def _fleet_bitmaps(dev, shift: int):
+    """[n, m_bytes] fleet bitmaps: node j holds the keys
+    [j*C + shift, (j+1)*C + shift), hashed with seed j."""
+    import torch
+    from repro_torch.core import optimal_k
+    from repro_torch.kernels.bloom import build_indicator
+    n, cap = FLEET["n"], FLEET["capacity"]
+    m = int(ROUTER_BPE * cap)
+    bits = torch.empty((n, m // 8), dtype=torch.uint8, device=dev)
+    for j in range(n):
+        keys = torch.arange(j * cap + shift, (j + 1) * cap + shift,
+                            device=dev)
+        bits[j] = build_indicator(keys, m, optimal_k(ROUTER_BPE), seed=j)
+    return bits
+
+
+def _decide_fleet(ind, member, dev, card: str) -> None:
+    """The fleet's measured (q, fp, fn), fed with the stale indications
+    into the batched CS_FNA / CS_FNO decisions on the card (float32, as
+    the reference's router_bench runs them)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.batched import cs_fna_batched, cs_fno_batched
+    pos = ind > 0
+    fn = ((~pos) & member).sum(0).double() / member.sum(0)
+    fp = (pos & ~member).sum(0).double() / (~member).sum(0)
+    q = pos.double().mean(0)
+    check(bool((fn > 0).all() and (fp > 0).all()),
+          "(c2) stale indicators show no false negatives or positives")
+    fmt = lambda x: json.dumps([float(v) for v in x.cpu()])  # noqa: E731
+    print(f"[router c2] measured per node: fp {fmt(fp)} fn {fmt(fn)} "
+          f"q {fmt(q)}")
+    costs = torch.as_tensor(np.random.default_rng(0).uniform(
+        1, 3, FLEET["n"]), dtype=torch.float32, device=dev)
+    views = [x.to(torch.float32) for x in (q, fp, fn)]
+    M = FLEET["miss_penalty"]
+    for name, policy in (("fna", cs_fna_batched), ("fno", cs_fno_batched)):
+        sel = policy(ind, costs, *views, M)
+        neg = int((sel & ~pos).sum())
+        total = int(sel.sum())
+        hit = (sel & member).any(dim=1)
+        cost = (sel * costs).sum(dim=1) + M * (~hit)
+        if name == "fno":
+            check(neg == 0, "(c2) CS_FNO accessed a negative-indication cache")
+        print(f"[router c2] {name}: {total} accesses, {neg} to "
+              f"negative-indication caches (share "
+              f"{neg / max(total, 1)!r}), hit ratio "
+              f"{float(hit.double().mean())!r}, mean cost "
+              f"{float(cost.double().mean())!r} ({card})")
+
+
+def _decisions_vs_cpu(st, cfg, dev) -> None:
+    """(c3): slice (b)'s own indication patterns and end-of-run (q, fp,
+    fn) decided on the card and on the CPU at float32 and float64; a row
+    that differs must lie in the dtype's dead-band."""
+    import numpy as np
+    import torch
+    from repro_torch.core.batched import (cs_fna_batched, cs_fno_batched,
+                                          rho_matrix)
+    ind = st.ind_all[-(1 << 20):].astype(np.int8)
+    views = (np.asarray(cfg.costs, np.float64),
+             np.asarray([s["q"] for s in st.final_state["q"]], np.float64),
+             st.fp_v[-1], st.fn_v[-1])
+    M = cfg.miss_penalty
+    cpu = torch.device("cpu")
+    for dtype, band in ((torch.float32, DEAD_BAND_F32),
+                        (torch.float64, DEAD_BAND)):
+        args = {d: [torch.as_tensor(ind, device=d)] +
+                [torch.as_tensor(x, dtype=dtype, device=d) for x in views]
+                for d in (dev, cpu)}
+        for name, policy in (("fna", cs_fna_batched),
+                             ("fno", cs_fno_batched)):
+            card_sel = policy(*args[dev], M).cpu().numpy()
+            host_sel = policy(*args[cpu], M).numpy()
+            diff = np.flatnonzero((card_sel != host_sel).any(axis=1))
+            gaps = np.zeros(0)
+            if diff.size:
+                rhos = rho_matrix(args[cpu][0][diff], *args[cpu][2:])
+                gaps = _dead_band_rows(views[0], rhos.double().numpy(), M,
+                                       ind[diff] > 0 if name == "fno"
+                                       else None)
+            print(f"[router c3] {name} {str(dtype)[6:]}: {diff.size} of "
+                  f"{ind.shape[0]} rows differ card vs CPU"
+                  + (f", max relative prefix-cost gap {gaps.max():.3e}"
+                     if diff.size else "") + f" (dead-band {band})")
+            check(not np.any(gaps > band),
+                  f"(c3) {name} {dtype}: rows differ outside the dead-band")
+
+
+def phase_router(dev, st, cfg, card: str):
+    """Phase 4: the router tier's device path — Bloom probe, then decide —
+    at the paper shape (c1) and the fleet shape (c2), then (c3); returns
+    the Bloom kernel's record."""
+    import numpy as np
+    import torch
+    from repro_torch.cachesim import get_trace
+    from repro_torch.core import optimal_k
+    from repro_torch.kernels import bloom
+    from repro_torch.kernels.bloom import ref
+    from repro_torch.kernels.subsetdp import ops as subsetdp_ops
+    k = optimal_k(ROUTER_BPE)
+    rng = np.random.default_rng(0)
+    trace = get_trace("gradle", N_REQUESTS, seed=0)
+    n1, per = PAPER_ROUTER["n"], PAPER_ROUTER["keys"]
+    members1 = rng.permutation(np.unique(trace))[: n1 * per].reshape(n1, per)
+    keys1 = torch.as_tensor(trace, device=dev)
+    n2, cap, d = FLEET["n"], FLEET["capacity"], FLEET["churn"]
+    keys2 = torch.as_tensor(rng.integers(0, n2 * cap + d, FLEET["batch"]),
+                            device=dev)
+
+    # the main drive, its launch counts read around it
+    subsetdp_ops.reset_launches()
+    bloom.reset_launches()
+    t0 = time.perf_counter()
+    bits1 = torch.stack([bloom.build_indicator(
+        torch.as_tensor(members1[j], device=dev), int(ROUTER_BPE * per), k,
+        seed=j) for j in range(n1)])
+    ind1 = bloom.bloom_probe(bits1, keys1, k=k)
+    stale, fresh = _fleet_bitmaps(dev, 0), _fleet_bitmaps(dev, d)
+    ind2 = bloom.bloom_probe(stale, keys2, k=k)
+    ind2_fresh = bloom.bloom_probe(fresh, keys2, k=k)
+    member = (torch.where(keys2 >= d, (keys2 - d) // cap, -1)[:, None]
+              == torch.arange(n2, device=dev)[None, :])
+    _decide_fleet(ind2, member, dev, card)
+    sync()
+    drive_s = time.perf_counter() - t0
+    launches = {**bloom.LAUNCHES, **subsetdp_ops.LAUNCHES}
+    print(f"[router] main drive {drive_s:.3f} s; kernel launches "
+          f"{json.dumps(launches)} ({card})")
+    check(bloom.LAUNCHES["bloom_probe"] > 0,
+          "the router path launched no bloom_probe kernel")
+
+    # (c1), (c2): kernel against its plain version on every output
+    err = 0
+    cases = (("c1 paper", bits1, keys1), ("c2 fleet stale", stale, keys2),
+             ("c2 fleet fresh", fresh, keys2))
+    for (tag, bits, keys), got in zip(cases, (ind1, ind2, ind2_fresh)):
+        want = ref.bloom_probe_ref(bits, keys, k)
+        e = int((got.to(torch.int16) - want).abs().max())
+        err = max(err, e)
+        check(e == 0, f"({tag}) bloom_probe != plain")
+        print(f"[router {tag}] n={bits.shape[0]} m_bytes={bits.shape[1]} "
+              f"k={k} B={keys.shape[0]}: kernel == plain on all "
+              f"{got.numel()} outputs; positive share "
+              f"{float(got.double().mean())!r}")
+    for j in range(n1):
+        mem = torch.isin(keys1, torch.as_tensor(members1[j], device=dev))
+        check(bool(ind1[mem, j].all()), "(c1) a member answered 0")
+    check(bool(ind2_fresh[member].all()),
+          "(c2) a fresh indicator showed a false negative")
+    print(f"[router c2] fresh indicators: 0 false negatives over "
+          f"{int(member.sum())} member probes; stale: "
+          f"{int((ind2[member] == 0).sum())} false negatives")
+    _decisions_vs_cpu(st, cfg, dev)
+
+    # times at (c1) and (c2), beside the bound of this run's inputs
+    total = dict(ms=0.0, plain_ms=0.0, ops=0, nbytes=0)
+    for tag, bits, keys in cases:
+        ms = cuda_ms(lambda: bloom.bloom_probe(bits, keys, k=k), 10)
+        plain_ms = cuda_ms(lambda: ref.bloom_probe_ref(bits, keys, k), 2)
+        n_ops, nbytes = bloom_work(bits, keys, k)
+        bound_ms, by = bound(n_ops, nbytes, PEAK_INT32_OPS)
+        print(f"[times] bloom_probe {tag} B={keys.shape[0]} "
+              f"n={bits.shape[0]} m_bytes={bits.shape[1]}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+              f"ms ({by}; {n_ops} int32 operations, {nbytes} bytes) "
+              f"({card})")
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("ops", n_ops),
+                         ("nbytes", nbytes)):
+            total[key] += val
+    bound_ms, by = bound(total["ops"], total["nbytes"], PEAK_INT32_OPS)
+    print(f"[times] bloom_probe, the three launches: kernel "
+          f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({by}) ({card})")
+    return {
+        "name": "bloom.bloom_probe", "route": "cuda",
+        "source": "src/repro_torch/kernels/bloom/csrc/bloom.cu",
+        "replaces": "src/repro/kernels/bloom/bloom.py:30",
+        "launches": launches["bloom_probe"], "max_abs_err": err,
+        "ms": total["ms"], "plain_ms": total["plain_ms"],
+        "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+    }
+
+
+def phase_serve() -> None:
+    """The serving entry point (host-only router replay) once per regime."""
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.serving import REGIMES
+    for regime in sorted(REGIMES):
+        rc = serve_main(["--replay", "--mode", "sequential", "--regime",
+                         regime, "--requests", "4000"])
+        check(rc == 0, f"serve --replay {regime} exited {rc}")
+
+
 #: golden scenarios re-run on the card, configs as the scenario registry
 #: defines them (tests/golden/<name>.json holds the reference's results)
 GOLDEN = {
@@ -456,10 +730,12 @@ def main() -> int:
     phase_kernel_checks(dev)
     st_b, cfg_b, launches = phase_slice(dev, card)
     record = phase_kernel_times(st_b, cfg_b, launches, card)
+    bloom_record = phase_router(dev, st_b, cfg_b, card)
+    phase_serve()
     phase_golden(dev, card)
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": [record, bloom_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

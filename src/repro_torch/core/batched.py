@@ -12,6 +12,10 @@ Port of the JAX package's ``repro.core.batched``:
     hand-written subset-DP kernel through
     ``repro_torch.kernels.subsetdp.ops.subset_argmin`` (its plain torch
     version for CPU tensors), per-row miss penalties included;
+  * the router math (:func:`exclusions`, :func:`hit_from_q`,
+    :func:`rho_matrix`, :func:`cs_fna_batched`, :func:`cs_fno_batched`)
+    is eager torch in the inputs' float dtype (the reference's router runs
+    float32), fed by the Bloom probe's int8 indications on the card;
   * the NumPy host paths stay NumPy, as in the reference:
     :func:`rho_selection_tables`, :func:`_subset_dp`, and the HOCS mirror
     (:func:`hocs_fna_batched`, :func:`hocs_selection_tables_cells`).
@@ -108,23 +112,77 @@ def _pg_finish(order, csum, lprod, m_col: torch.Tensor) -> torch.Tensor:
 
 def ds_pgm_batched(costs: torch.Tensor, rhos: torch.Tensor, miss_penalty,
                    *, fno_mask: torch.Tensor = None) -> torch.Tensor:
-    """Batched DS_PGM prefix evaluation (float64 tensors on one device).
+    """Batched DS_PGM prefix evaluation (tensors on one device), in the
+    float dtype of ``rhos``: the simulator's tables pass float64, the
+    router float32 or float64, as the reference's inputs set it.
 
     costs: [N] shared, or [B,N] per row; rhos: [B,N]; miss_penalty: scalar,
     or [B] per row; optional fno_mask [B,N] (nonzero = cache may be
     accessed: CS_FNO passes the positive-indication mask).  Every
     operation is row-local, so a row's mask is independent of what else
     shares the batch.  Returns a selection mask [B,N] (bool).
+
+    At float32 the clip's upper end ``1 - EPS`` rounds to 1.0, so a cache
+    with rho = 1 gets the key ``c / -0.0 = -inf`` and sorts first, as in
+    the reference; at float64 it sorts last.
     """
     b, n = rhos.shape
-    dev = rhos.device
-    costs = torch.as_tensor(costs, dtype=F64, device=dev)
+    dev, dt = rhos.device, rhos.dtype
+    costs = torch.as_tensor(costs, dtype=dt, device=dev)
     costs_b = costs.expand(b, n) if costs.dim() == 1 else costs
-    m = torch.as_tensor(miss_penalty, dtype=F64, device=dev)
+    m = torch.as_tensor(miss_penalty, dtype=dt, device=dev)
     m_b = m.expand(b) if m.dim() == 0 else m
     stages = _pg_sort(costs_b, rhos.clamp(EPS, 1.0 - EPS),
                       None if fno_mask is None else fno_mask > 0)
     return _pg_finish(*stages, m_b[:, None])
+
+
+def _router_tensors(indications, q, fp, fn, device):
+    """Router inputs as tensors on one device: the indications' own
+    device when it is a tensor, else ``device`` (default ``cuda``)."""
+    dev = tensor_device(indications, device)
+    return tuple(torch.as_tensor(x, device=dev)
+                 for x in (indications, q, fp, fn))
+
+
+def exclusions(h, fp, fn) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eqs. (1)-(3), elementwise: (pi, nu) from the hit ratio and the
+    indicator's FP/FN rates (tensors; the reference's operation order)."""
+    q = h * (1.0 - fn) + (1.0 - h) * fp
+    pi = (fp * (1.0 - h) / q.clamp(min=EPS)).clamp(0.0, 1.0)
+    nu = ((1.0 - fp) * (1.0 - h) / (1.0 - q).clamp(min=EPS)).clamp(0.0, 1.0)
+    return pi, nu
+
+
+def hit_from_q(q, fp, fn) -> torch.Tensor:
+    """Eq. (9) inverted: hit ratio from the positive-indication ratio."""
+    denom = 1.0 - fp - fn
+    safe = torch.where(denom.abs() < EPS, torch.ones_like(denom), denom)
+    return ((q - fp) / safe).clamp(0.0, 1.0)
+
+
+def rho_matrix(indications, q, fp, fn, *, device=None) -> torch.Tensor:
+    """[B,N] rho_j per request: pi_j on a positive indication, nu_j on a
+    negative one.  ``indications`` [B,N] may be the Bloom probe's int8."""
+    ind, q, fp, fn = _router_tensors(indications, q, fp, fn, device)
+    pi, nu = exclusions(hit_from_q(q, fp, fn), fp, fn)
+    return torch.where(ind > 0, pi[None, :], nu[None, :])
+
+
+def cs_fna_batched(indications, costs, q, fp, fn, miss_penalty, *,
+                   device=None) -> torch.Tensor:
+    """Algorithm 2, batched: all caches candidates, rho by indication.
+    Returns [B,N] bool selection masks."""
+    rhos = rho_matrix(indications, q, fp, fn, device=device)
+    return ds_pgm_batched(costs, rhos, miss_penalty)
+
+
+def cs_fno_batched(indications, costs, q, fp, fn, miss_penalty, *,
+                   device=None) -> torch.Tensor:
+    """FNO baseline, batched: positive-indication caches only."""
+    ind, q, fp, fn = _router_tensors(indications, q, fp, fn, device)
+    return ds_pgm_batched(costs, rho_matrix(ind, q, fp, fn), miss_penalty,
+                          fno_mask=ind)
 
 
 def selection_tables(costs, pi, nu, miss_penalty, *, fno: bool = False,
