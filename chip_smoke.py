@@ -10,8 +10,10 @@ It imports nothing of JAX or of the JAX package, and exits non-zero
 Phases, each failing the run on any mismatch:
 
   1. build the CUDA kernels, one nvcc per source, all started together
-     (``src/repro_torch/kernels/subsetdp/csrc/subsetdp.cu`` and
-     ``kernels/bloom/csrc/bloom.cu``, sm_90a), and print the card;
+     (``src/repro_torch/kernels/subsetdp/csrc/subsetdp.cu``,
+     ``kernels/bloom/csrc/bloom.cu``, ``kernels/flash_attention/csrc/
+     flash.cu`` and ``kernels/ssd/csrc/ssd.cu``, sm_90a), and print the
+     card;
   2. hold the kernel against its plain PyTorch version on the card:
      ``subset_prod`` byte for byte at n in {4, 8, 12} (rho in {0, 1},
      ragged row counts), ``subset_argmin`` exactly with and without
@@ -43,7 +45,26 @@ Phases, each failing the run on any mismatch:
      entry point once per regime;
   5. golden on the card: ``exhaustive_small`` (its fna_cal speculation
      tables through the kernel too) and ``fig4_gradle`` equal to
-     ``tests/golden/*.json`` bit for bit.
+     ``tests/golden/*.json`` bit for bit;
+  6. the LM serving path: (d1) the flash-attention and SSD kernels against
+     their plain versions on the card — flash at the serve shapes
+     [1, 24 | 512, 9/3, 64] and a long prefill [1, 2048, 9/3, 64], float32
+     at 2e-5 and bf16 at 3e-2; SSD at mamba2-370m's [1, 4096, 32, 64],
+     n = 128, chunk 256, and at the padded serve length 300, float32 at
+     2e-3 and bf16 at 3e-2; (d2) ``python -m repro_torch.launch.serve``
+     (no ``--replay``) at full published width, launch counts read around
+     each drive: smollm-135m ``--no-reduced --prefix-len 512 --requests
+     200`` (flash launches = 30 x prefills) and mamba2-370m ``--no-reduced
+     --prefix-len 300 --requests 100`` (SSD launches = 48 x prefills);
+     (d3) each model at full width in float32 with seeded weights: prefill
+     and greedy decode on the card (kernels) against the CPU (plain
+     versions); (d4) the two kernels' times beside their plain versions',
+     ``scaled_dot_product_attention``'s (flash) and their bounds.
+
+TF32 is off for matrix products (``torch.backends.cuda.matmul``, the
+default) and for cuDNN (``torch.backends.cudnn``, on by default), so that
+float32 on the card is float32 as on the CPU; the model path calls no
+cuDNN operator (its causal convolution is a shifted sum).
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON object describing the kernels of the main path, and
@@ -64,6 +85,9 @@ ROOT = Path(__file__).resolve().parent
 #: H100 SXM peaks (NVIDIA data sheet): fp64 without tensor cores, HBM3
 PEAK_FP64_FLOPS = 34e12
 PEAK_BYTES_PER_S = 3.35e12
+#: dense bf16 on the tensor cores; float32 outside them
+PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 #: the paper-scale setup (benchmarks/paper_figs.py _scale(full=True))
 PAPER = dict(cache_size=10_000, update_interval=1_000, bpe=14.0,
              est_interval=50, miss_penalty=100.0, seed=0)
@@ -130,8 +154,10 @@ def cuda_ms(fn, iters: int) -> float:
 def phase_build(card: str) -> float:
     """Every kernel source built at once (one nvcc each), then loaded."""
     from repro_torch.kernels.bloom import build as bloom_build
+    from repro_torch.kernels.flash_attention import build as flash_build
+    from repro_torch.kernels.ssd import build as ssd_build
     from repro_torch.kernels.subsetdp import build as subsetdp_build
-    builds = (subsetdp_build, bloom_build)
+    builds = (subsetdp_build, bloom_build, flash_build, ssd_build)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda b: b.build(verbose=True), builds))
@@ -716,11 +742,323 @@ def phase_golden(dev, card: str) -> None:
               f"bit for bit ({card})")
 
 
+# ---------------------------------------------------------------------------
+# the LM serving path (flash attention and the SSD scan)
+# ---------------------------------------------------------------------------
+
+#: flash kernel checks: (name, B, S, Hq, Hkv, D) — the serve shapes of
+#: smollm-135m (prefix 24, the launcher's default, and 512) and a long
+#: prefill; causal (the prefill) and non-causal
+FLASH_SHAPES = (("serve24", 1, 24, 9, 3, 64), ("serve512", 1, 512, 9, 3, 64),
+                ("long2048", 1, 2048, 9, 3, 64))
+#: SSD checks: (name, b, s, h, p, n, chunk) — mamba2-370m's widths at the
+#: padded serve length and at a 4096-token prefill
+SSD_SHAPES = (("serve300", 1, 300, 32, 64, 128, 256),
+              ("long4096", 1, 4096, 32, 64, 128, 256))
+#: (dtype name, tolerance): float32 at the JAX kernel tests' gates (2e-5
+#: flash, 2e-3 SSD: summation order only); bf16 at 3e-2 (p, resp. y,
+#: rounded to bf16 against values that differ in float32 rounding)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+SSD_TOL = {"float32": 2e-3, "bfloat16": 3e-2}
+#: the full-width serve drives: (arch, launcher flags, kernel)
+SERVE_DRIVES = (("smollm-135m", ["--prefix-len", "512", "--requests", "200"],
+                 "flash_attention"),
+                ("mamba2-370m", ["--prefix-len", "300", "--requests", "100"],
+                 "ssd_scan"))
+#: full-width float32 card vs CPU: prompt length and decode steps per
+#: model; logits within LOGIT_TOL (rtol and atol): float32 on both sides,
+#: cuBLAS and the CPU's BLAS sum in other orders across 30 or 48 layers
+LM_COMPARE = {"smollm-135m": 512, "mamba2-370m": 300}
+LM_DECODE_STEPS = 8
+LOGIT_TOL = 2e-3
+
+
+def _err(got, want, tol: float):
+    """(max |got - want|, whether every element is within tol + tol|want|)."""
+    import torch
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    return float(diff.max()), bool((diff <= tol + tol * w.abs()).all())
+
+
+def _flash_inputs(b, s, hq, hkv, d, dtype, dev, seed):
+    import torch
+    g = torch.Generator(dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d))]
+
+
+def _ssd_inputs(b, s, h, p, n, dtype, dev, seed):
+    """x, B, C standard normal; dt = softplus(N(0,1) - 1) and A = -exp(U)
+    as the JAX kernel tests draw them; dt and A float32."""
+    import torch
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=g, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=g, device=dev) - 1.0)
+    A = -torch.exp(torch.rand(h, generator=g, device=dev) * 2.0 - 1.0)
+    B = torch.randn((b, s, n), generator=g, device=dev).to(dtype)
+    C = torch.randn((b, s, n), generator=g, device=dev).to(dtype)
+    return x, dt, A, B, C
+
+
+def phase_lm_kernel_checks(dev) -> dict:
+    """(d1) Each LM kernel against its plain version on the card
+    (comparison launches; they do not count towards the main path).
+    Returns the largest error per kernel at the main path's type."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    errs = {"flash_attention": 0.0, "ssd_scan": 0.0}
+    for name, b, s, hq, hkv, d in FLASH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = FLASH_TOL[str(dtype)[6:]]
+            q, k, v = _flash_inputs(b, s, hq, hkv, d, dtype, dev, s)
+            for causal in (True, False):
+                got = fa.flash_attention(q, k, v, causal=causal)
+                sync()
+                want = fa.flash_attention_ref(q, k, v, causal=causal)
+                err, ok = _err(got, want, tol)
+                check(ok, f"flash {name} {dtype} causal={causal}: kernel != "
+                          f"plain (max |err| {err})")
+                if dtype == torch.bfloat16 and causal and name == "serve512":
+                    errs["flash_attention"] = err
+                print(f"[lm kernel] flash {name} {str(dtype)[6:]} causal="
+                      f"{causal}: max |kernel - plain| {err!r} (tol {tol})")
+    for name, b, s, h, p, n, chunk in SSD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = SSD_TOL[str(dtype)[6:]]
+            x, dt, A, B, C = _ssd_inputs(b, s, h, p, n, dtype, dev, s)
+            st0 = torch.randn((b, h, p, n), device=dev,
+                              generator=torch.Generator(dev).manual_seed(1))
+            for init in (None, st0):
+                y, st = ssd.ssd_scan(x, dt, A, B, C, chunk=chunk,
+                                     initial_state=init)
+                sync()
+                y_r, st_r = ssd.ssd_scan_ref(x, dt, A, B, C, chunk=chunk,
+                                             initial_state=init)
+                err, ok = _err(y, y_r, tol)
+                serr, sok = _err(st, st_r, SSD_TOL["float32"])
+                check(ok and sok, f"ssd {name} {dtype}: kernel != plain "
+                                  f"(y {err}, state {serr})")
+                if dtype == torch.bfloat16 and init is None and \
+                        name == "serve300":
+                    errs["ssd_scan"] = err
+                print(f"[lm kernel] ssd {name} {str(dtype)[6:]} initial_"
+                      f"state={init is not None}: max |kernel - plain| y "
+                      f"{err!r}, state {serr!r} (tol {tol})")
+    return errs
+
+
+def _serve_line(text: str) -> dict:
+    import re
+    last = [ln for ln in text.splitlines() if "policy=" in ln][-1]
+    out = {k: float(re.search(rf"\b{k}=([0-9.,]+)", last).group(1)
+                    .replace(",", ""))
+           for k in ("requests", "hit", "prefills", "tok/s", "wall")}
+    out["prefill_s"] = float(re.search(r"\(prefill ([0-9.]+)s\)",
+                                       last).group(1))
+    return out
+
+
+def phase_lm_serve(card: str) -> dict:
+    """(d2) The serving launcher at full width on the card, each drive's
+    kernel launches read around it; returns launches per kernel."""
+    import contextlib
+    import io
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    from repro_torch.launch.serve import main as serve_main
+    launches = {}
+    for arch, flags, kernel in SERVE_DRIVES:
+        argv = ["--arch", arch, "--no-reduced", "--device", "cuda"] + flags
+        fa.reset_launches()
+        ssd.reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serve_main(argv)
+        secs = time.perf_counter() - t0
+        counts = {**fa.LAUNCHES, **ssd.LAUNCHES}
+        print(buf.getvalue(), end="")
+        check(rc == 0, f"serve {arch} exited {rc}")
+        stats = _serve_line(buf.getvalue())
+        n_layers = get_config(arch).n_layers
+        want = n_layers * int(stats["prefills"])
+        print(f"[lm serve] {arch} full width: {json.dumps(counts)} kernel "
+              f"launches for {int(stats['prefills'])} prefills x "
+              f"{n_layers} layers; {secs:.3f} s in all ({card})")
+        check(stats["prefills"] > 0 and counts[kernel] == want,
+              f"{arch}: {counts[kernel]} {kernel} launches, expected {want}")
+        check(sum(counts.values()) == want,
+              f"{arch}: launched a kernel of the other model family")
+        launches[kernel] = counts[kernel]
+    return launches
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _lm_compare(arch: str, dev, card: str) -> None:
+    """(d3) Full width, float32, seeded weights: prefill logits and the
+    cache, then greedy decode on the CPU and the card fed the CPU's
+    tokens; the card's greedy choice must match the CPU's wherever the
+    CPU's top-2 gap exceeds the logit tolerance."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model, init_params
+    cfg = dc.replace(get_config(arch), dtype="float32")
+    model = get_model(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(7), "cpu")
+    params_card = _to_device(params, dev)
+    s = LM_COMPARE[arch]
+    toks = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab, (1, s)))
+    kw = {} if cfg.family == "ssm" else {"max_len": s + LM_DECODE_STEPS}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        lg_c, cache_c = model.prefill(params, {"tokens": toks}, **kw)
+        cpu_s = time.perf_counter() - t0
+        lg_g, cache_g = model.prefill(params_card, {"tokens": toks.to(dev)},
+                                      **kw)
+        sync()
+        worst, ok = _err(lg_g.cpu(), lg_c, LOGIT_TOL)
+        for name, val in cache_c.items():
+            if isinstance(val, torch.Tensor):
+                e, o = _err(cache_g[name].cpu(), val, LOGIT_TOL)
+                check(o, f"{arch} float32 prefill cache {name}: card != CPU "
+                         f"(max |err| {e})")
+        check(ok, f"{arch} float32 prefill logits: card != CPU ({worst})")
+        flips = 0
+        tok = lg_c[:, :cfg.vocab].argmax(-1)
+        for _ in range(LM_DECODE_STEPS):
+            lg_c, cache_c = model.decode_step(params, cache_c, tok)
+            lg_g, cache_g = model.decode_step(params_card, cache_g,
+                                              tok.to(dev))
+            e, o = _err(lg_g.cpu(), lg_c, LOGIT_TOL)
+            check(o, f"{arch} float32 decode logits: card != CPU ({e})")
+            worst = max(worst, e)
+            nxt = lg_c[:, :cfg.vocab].argmax(-1)
+            top2 = lg_c[0, :cfg.vocab].topk(2).values
+            if int(lg_g[:, :cfg.vocab].argmax(-1).cpu()) != int(nxt):
+                flips += 1
+                check(float(top2[0] - top2[1]) <= 2 * LOGIT_TOL,
+                      f"{arch}: greedy token differs outside a near-tie")
+            tok = nxt
+    print(f"[lm compare] {arch} full width float32, prompt {s}: prefill + "
+          f"{LM_DECODE_STEPS} greedy decode steps, max |card - CPU| logit "
+          f"{worst!r} (tol {LOGIT_TOL}), greedy tokens equal in "
+          f"{LM_DECODE_STEPS - flips} of {LM_DECODE_STEPS} steps (near-tie "
+          f"flips allowed); CPU prefill {cpu_s:.3f} s ({card})")
+
+
+def flash_work(b, sq, sk, hq, hkv, d, causal: bool, elem: int):
+    """(flops, bytes) the attention needs: 2 flops per multiply-add of
+    QK^T and of PV over the (query, key) pairs the mask keeps; q, k, v
+    read once and o written once."""
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    return 4 * b * hq * d * pairs, elem * (2 * b * sq * hq * d +
+                                           2 * b * sk * hkv * d)
+
+
+def ssd_work(b, s, h, p, n, chunk: int, elem: int):
+    """(flops, bytes) the chunked scan needs on these rows: per chunk of l
+    real rows, C.B^T over the l(l+1)/2 kept pairs once per sequence (the
+    heads share B and C), and per head the weighted sum over those pairs
+    (p wide), the inter-chunk product and the state update (l*p*n each),
+    2 flops per multiply-add; the exps, the cumsum and the scalings are
+    lower-order and not counted.  Bytes: x, B, C, dt, A read once, y and
+    the final state written once."""
+    flops = 0
+    for c0 in range(0, s, chunk):
+        l_ = min(chunk, s - c0)
+        pairs = l_ * (l_ + 1) // 2
+        flops += b * (2 * n * pairs + h * (2 * p * pairs + 4 * l_ * p * n))
+    nbytes = elem * (2 * b * s * h * p + 2 * b * s * n) + 4 * (
+        b * s * h + h + b * h * p * n)
+    return flops, nbytes
+
+
+def phase_lm_times(dev, launches: dict, errs: dict, card: str):
+    """(d4) Kernel, plain version and (flash) SDPA times at the main
+    path's shapes (bf16: flash [1, 512, 9/3, 64] causal, SSD [1, 300, 32,
+    64] chunk 256) and at the long shapes; returns the two records."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    bf = torch.bfloat16
+    records = []
+    for name, b, s, hq, hkv, d in FLASH_SHAPES[1:]:
+        q, k, v = _flash_inputs(b, s, hq, hkv, d, bf, dev, s)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_ref(q, k, v), 5)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+        flops, nbytes = flash_work(b, s, s, hq, hkv, d, True, 2)
+        bound_ms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        print(f"[times] flash_attention {name} bf16 causal [{b}, {s}, {hq}/"
+              f"{hkv}, {d}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"SDPA {lib_ms:.4f} ms, bound {bound_ms:.6f} ms ({by}; "
+              f"{flops} flops, {nbytes} bytes) ({card})")
+        if name == "serve512":
+            records.append({
+                "name": "flash_attention.flash_attention", "route": "cuda",
+                "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                          "flash.cu",
+                "replaces": "src/repro/kernels/flash_attention/flash.py:32",
+                "launches": launches["flash_attention"],
+                "max_abs_err": errs["flash_attention"], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+                "library_ms": lib_ms})
+    for name, b, s, h, p, n, chunk in SSD_SHAPES:
+        x, dt, A, B, C = _ssd_inputs(b, s, h, p, n, bf, dev, s)
+        ms = cuda_ms(lambda: ssd.ssd_scan(x, dt, A, B, C, chunk=chunk), 10)
+        plain_ms = cuda_ms(lambda: ssd.ssd_scan_ref(x, dt, A, B, C,
+                                                    chunk=chunk), 3)
+        flops, nbytes = ssd_work(b, s, h, p, n, chunk, 2)
+        bound_ms, by = bound(flops, nbytes, PEAK_FP32_FLOPS)
+        print(f"[times] ssd_scan {name} bf16 [{b}, {s}, {h}, {p}] n={n} "
+              f"chunk={chunk}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.6f} ms ({by}; {flops} float32 flops, "
+              f"{nbytes} bytes) ({card})")
+        if name == "serve300":
+            records.append({
+                "name": "ssd.ssd_scan", "route": "cuda",
+                "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+                "replaces": "src/repro/kernels/ssd/ssd.py:28",
+                "launches": launches["ssd_scan"],
+                "max_abs_err": errs["ssd_scan"], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+                "library_ms": None})
+    return records
+
+
+def phase_lm(dev, card: str):
+    """Phase 6: the LM serving path; returns the two kernel records."""
+    errs = phase_lm_kernel_checks(dev)
+    launches = phase_lm_serve(card)
+    for arch in LM_COMPARE:
+        _lm_compare(arch, dev, card)
+    return phase_lm_times(dev, launches, errs, card)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout)
     dev = torch.device("cuda")
@@ -733,9 +1071,10 @@ def main() -> int:
     bloom_record = phase_router(dev, st_b, cfg_b, card)
     phase_serve()
     phase_golden(dev, card)
+    lm_records = phase_lm(dev, card)
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [record, bloom_record]}))
+    print(json.dumps({"kernels": [record, bloom_record, *lm_records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

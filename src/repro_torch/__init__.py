@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the false-negative-aware cache simulator.
+"""PyTorch/CUDA port of the false-negative-aware cache simulator, its
+router tier and the LM serving path.
 
 The package mirrors the JAX reference ``repro`` module for module and
 imports nothing of it (nor of JAX).  What is NumPy or plain Python in the

@@ -1,0 +1,90 @@
+"""Public wrapper for the flash-attention kernel.
+
+``flash_attention(q, k, v, causal=True)`` takes the model layout —
+q [B,Sq,Hq,D], k/v [B,Sk,Hkv,D] — and returns [B,Sq,Hq,D] in q's type,
+as the JAX package's ``kernels.flash_attention.ops.flash_attention``
+does (that wrapper transposes to head-major for the Pallas kernel; the
+CUDA kernel reads the model layout directly).
+
+Dispatch is by the device of the tensors: a CUDA tensor launches the
+hand-written kernel (``csrc/flash.cu``, built at first use by
+``build.py``) or raises on a type, shape or layout the kernel does not
+take; a CPU tensor takes the plain version (``ref.py``).  NumPy inputs
+are placed on ``device`` first, which defaults to ``cuda`` (and raises
+without a GPU).  The TPU wrapper's ``block_q``/``block_k`` and its
+``sq % block_q == 0`` rule have no counterpart: any Sq and Sk are taken.  Causal masking assumes that
+query and key positions both start at 0 — prefill, not decode.
+
+``LAUNCHES`` counts kernel launches (the plain path counts nothing).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, tensor_device
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+#: kernel launches since the last ``reset_launches()``
+LAUNCHES = {"flash_attention": 0}
+#: head dims the kernel is instantiated for
+HEAD_DIMS = (16, 32, 64, 128)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q must be [B,Sq,Hq,D] and k, v [B,Sk,Hkv,D], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, sq, hq, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or k.shape[1] < 1 or sq < 1:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
+                         f"in batch or head dim, or a sequence is empty")
+    if hq % k.shape[2]:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={k.shape[2]}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k, v lie on {q.device}, {k.device}, {v.device}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    device: DeviceLike = None) -> torch.Tensor:
+    """q: [B,Sq,Hq,D]; k/v: [B,Sk,Hkv,D] -> [B,Sq,Hq,D]."""
+    dev = tensor_device(q, device)
+    q, k, v = (x if isinstance(x, torch.Tensor) else
+               torch.as_tensor(np.asarray(x), device=dev) for x in (q, k, v))
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if q.dtype not in DTYPES or not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"q, k, v must share a type in float32/bfloat16, "
+                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k, v must be contiguous")
+    if max(b, hq) > 65535 or b * sq * hq * d >= 1 << 62:
+        raise ValueError(f"shape {tuple(q.shape)} exceeds the launch grid")
+    out = torch.empty_like(q)
+    from repro_torch.kernels.flash_attention.build import load
+    lib = load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            sk, hq, hkv, d, DTYPES[q.dtype], int(bool(causal)), d ** -0.5,
+            stream)
+    if code != 0:
+        raise RuntimeError(f"flash-attention kernel launch failed: CUDA "
+                           f"error {code}")
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -1,0 +1,130 @@
+"""Public wrapper for the Mamba2 SSD chunked-scan kernel.
+
+``ssd_scan(x, dt, A, B, C, chunk=..., initial_state=None)`` returns
+``(y [b,s,h,p], final_state [b,h,p,n] float32)`` with the contract of
+``models.ssm.ssd_chunked``: any sequence length (a ragged tail is read as
+zeros and cut from y, where the Pallas wrapper asserts ``s % chunk ==
+0``) and an optional entering state (zeros when absent).
+
+Dispatch is by the device of the tensors: a CUDA tensor launches the
+hand-written kernel (``csrc/ssd.cu``, built at first use by ``build.py``)
+or raises on a type, shape or layout the kernel does not take; a CPU
+tensor takes the plain version (``ref.py``).  NumPy inputs are placed on
+``device`` first, which defaults to ``cuda`` (and raises without a GPU).
+The kernel takes x, B and C in one type (float32 or bfloat16), dt, A and
+the state in float32, head dims p in {16, 32, 64}, n a multiple of 4
+with p * n <= 8192, and chunk <= 256 (one thread per chunk row), within
+the card's shared memory per block.
+
+``LAUNCHES`` counts kernel launches (the plain path counts nothing).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, tensor_device
+from repro_torch.kernels.ssd.ref import ssd_scan_ref
+
+#: kernel launches since the last ``reset_launches()``
+LAUNCHES = {"ssd_scan": 0}
+HEAD_DIMS = (16, 32, 64)
+MAX_CHUNK = 256
+MAX_STATE = 8192
+#: dynamic shared memory one block may use on Hopper (227 KB)
+MAX_SMEM = 232_448
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+F32 = torch.float32
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check(x, dt, A, B, C, chunk, initial_state) -> None:
+    if x.dim() != 4:
+        raise ValueError(f"x must be [b,s,h,p], got {tuple(x.shape)}")
+    b, s, h, p = x.shape
+    n = B.shape[-1] if B.dim() == 3 else -1
+    if tuple(dt.shape) != (b, s, h) or tuple(A.shape) != (h,) or \
+            tuple(B.shape) != (b, s, n) or C.shape != B.shape:
+        raise ValueError(f"expected dt [b,s,h], A [h], B/C [b,s,n] for x "
+                         f"{tuple(x.shape)}; got {tuple(dt.shape)}, "
+                         f"{tuple(A.shape)}, {tuple(B.shape)}, "
+                         f"{tuple(C.shape)}")
+    if initial_state is not None and \
+            tuple(initial_state.shape) != (b, h, p, n):
+        raise ValueError(f"initial_state must be {(b, h, p, n)}, got "
+                         f"{tuple(initial_state.shape)}")
+    if int(chunk) < 1 or s < 1:
+        raise ValueError(f"chunk and s must be >= 1, got {chunk}, {s}")
+    tensors = [x, dt, A, B, C] + \
+        ([] if initial_state is None else [initial_state])
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("x, dt, A, B, C and initial_state lie on "
+                         "different devices")
+
+
+def _kernel_checks(x, dt, A, B, C, chunk, initial_state) -> None:
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if x.dtype not in DTYPES or not (x.dtype == B.dtype == C.dtype):
+        raise ValueError(f"x, B, C must share a type in float32/bfloat16, "
+                         f"got {x.dtype}, {B.dtype}, {C.dtype}")
+    floats = [dt, A] + ([] if initial_state is None else [initial_state])
+    if any(t.dtype != F32 for t in floats):
+        raise ValueError("dt, A and initial_state must be float32")
+    if p not in HEAD_DIMS or n % 4 or p * n > MAX_STATE:
+        raise ValueError(f"head dim p={p} must be in {HEAD_DIMS} and n={n} "
+                         f"a multiple of 4 with p*n <= {MAX_STATE}")
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} > {MAX_CHUNK}")
+    if not all(t.is_contiguous() for t in [x, B, C] + floats):
+        raise ValueError("x, dt, A, B, C and initial_state must be "
+                         "contiguous")
+    if h > 65535 or b > 65535 or b * s * h * p >= 1 << 62:
+        raise ValueError(f"shape {tuple(x.shape)} exceeds the launch grid")
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, initial_state=None,
+             device: DeviceLike = None):
+    """x: [b,s,h,p]; dt: [b,s,h]; A: [h]; B/C: [b,s,n] (single group).
+    Returns (y [b,s,h,p] in x's type, final_state [b,h,p,n] float32)."""
+    dev = tensor_device(x, device)
+    x, dt, A, B, C = (t if isinstance(t, torch.Tensor) else
+                      torch.as_tensor(np.asarray(t), device=dev)
+                      for t in (x, dt, A, B, C))
+    if initial_state is not None and \
+            not isinstance(initial_state, torch.Tensor):
+        initial_state = torch.as_tensor(np.asarray(initial_state), device=dev)
+    _check(x, dt, A, B, C, chunk, initial_state)
+    chunk = int(chunk)
+    if x.device.type == "cpu":
+        return ssd_scan_ref(x, dt, A, B, C, chunk=chunk,
+                            initial_state=initial_state)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _kernel_checks(x, dt, A, B, C, chunk, initial_state)
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    from repro_torch.kernels.ssd.build import load
+    lib = load()
+    smem = lib.ssd_scan_smem_bytes(p, n, chunk)
+    if smem > MAX_SMEM:
+        raise ValueError(f"p={p}, n={n}, chunk={chunk} need {smem} bytes of "
+                         f"shared memory per block (> {MAX_SMEM})")
+    y = torch.empty_like(x)
+    state = torch.empty((b, h, p, n), dtype=F32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = lib.ssd_scan_fwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(),
+            None if initial_state is None else initial_state.data_ptr(),
+            y.data_ptr(), state.data_ptr(), b, s, h, p, n, chunk,
+            DTYPES[x.dtype], stream)
+    if code != 0:
+        raise RuntimeError(f"SSD kernel launch failed: CUDA error {code}")
+    LAUNCHES["ssd_scan"] += 1
+    return y, state

@@ -1,4 +1,17 @@
-"""Serving launcher of the port: the FNA prefix-cache router replay.
+"""Serving launcher of the port: model engine + FNA prefix-cache routing
+tier (the port of the JAX package's ``python -m repro.launch.serve``).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+      --requests 200 --policy fna_cal --device cpu
+
+drives the full data path on one device: route -> probe -> (hit: reuse
+the prefix KV | miss: a real prefill) -> decode -> place.  It runs on
+``cuda`` unless ``--device cpu`` is given; ``--reduced`` (the default)
+takes the architecture's tiny same-family config, ``--no-reduced`` its
+published one.  The ``dense`` family (smollm-135m) prefills through the
+flash-attention kernel and the ``ssm`` family (mamba2-370m) through the
+SSD kernel; decode is plain torch.  The output lines are the JAX
+launcher's; the prefill seconds are taken after a device sync.
 
 ``--replay`` runs the concurrent-client router replay harness
 (``repro_torch.serving.replay``): N clients drive a scenario-defined
@@ -10,18 +23,16 @@ and needs no GPU.
   PYTHONPATH=src python -m repro_torch.launch.serve --replay \\
       --regime staggered_adverts --requests 8000 --clients 8 \\
       --batch-sizes 1,4,16 --json /tmp/replay.json
-
-The flags and output lines are the JAX package's
-(``python -m repro.launch.serve``).  Its model path (prefill and decode
-through ``ServeEngine``) belongs to the LM stack, which the port does not
-have yet (ROADMAP A8): without ``--replay`` this launcher exits with
-status 2 and says so.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
+import time
+
+import numpy as np
 
 
 def _run_replay(args) -> int:
@@ -48,7 +59,12 @@ def _run_replay(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
-    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="the architecture's tiny same-family config "
+                         "(default); --no-reduced runs the published one")
+    ap.add_argument("--device", default="cuda",
+                    help="device of the model path (cuda or cpu)")
     ap.add_argument("--requests", type=int, default=200)
     ap.add_argument("--policy", default="fna_cal",
                     choices=["fna", "fna_cal", "fno", "pi"])
@@ -83,10 +99,73 @@ def main(argv=None) -> int:
 
     if args.replay:
         return _run_replay(args)
-    print("repro_torch.launch.serve: only --replay is available; the model "
-          "path (prefill/decode through ServeEngine) waits for the port's "
-          "LM stack (ROADMAP A8)", file=sys.stderr)
-    return 2
+    return _run_model(args)
+
+
+def _run_model(args) -> int:
+    import torch
+
+    from repro_torch.cachesim.traces import recency_trace
+    from repro_torch.configs import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.serving import (ClusterConfig, PrefixServeCluster,
+                                     ServeEngine)
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.kv_quant and cfg.family in ("dense", "moe", "vlm"):
+        cfg = dataclasses.replace(cfg, kv_quant=True)
+    engine = ServeEngine(cfg, device=dev)
+    rng = np.random.default_rng(args.seed)
+    prefixes = [rng.integers(0, cfg.vocab, (1, args.prefix_len)).astype(np.int32)
+                for _ in range(256)]
+    stream = recency_trace(args.requests, p_new=0.15, window=96,
+                           seed=args.seed + 1)
+
+    ccfg = ClusterConfig(n_nodes=args.nodes, node_capacity=args.node_capacity,
+                         update_interval=args.update_interval,
+                         miss_penalty=args.miss_penalty, policy=args.policy)
+    cluster = PrefixServeCluster(ccfg, seed=args.seed)
+    max_len = args.prefix_len + args.decode_steps + 2
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.time()
+    prefill_s = 0.0
+    tokens_out = 0
+    for i in range(args.requests):
+        pid = int(stream[i])
+        toks = prefixes[pid % len(prefixes)]
+
+        def make_kv():
+            nonlocal prefill_s
+            t1 = time.time()
+            _, c = engine.prefill(toks, max_len=max_len)
+            sync()
+            prefill_s += time.time() - t1
+            return c
+
+        kv, cost = cluster.request(pid, make_kv=make_kv)
+        first = np.zeros((toks.shape[0],), np.int32)
+        out, _ = engine.decode(kv, first, args.decode_steps)
+        tokens_out += out.size
+        if (i + 1) % 50 == 0:
+            s = cluster.stats
+            print(f"[serve] {i + 1:5d} reqs  mean-cost {s.mean_cost:7.2f}  "
+                  f"kv-hit {s.hit_ratio:.3f}  prefills {s.prefills}  "
+                  f"neg-probes {s.neg_probes}")
+    wall = time.time() - t0
+    s = cluster.stats
+    print(f"[serve] policy={args.policy} requests={s.requests} "
+          f"mean-cost={s.mean_cost:.2f} hit={s.hit_ratio:.3f} "
+          f"prefills={s.prefills} neg_probes={s.neg_probes} "
+          f"tok/s={tokens_out / wall:,.0f} wall={wall:.1f}s "
+          f"(prefill {prefill_s:.1f}s)")
+    return 0
 
 
 if __name__ == "__main__":

@@ -1,0 +1,114 @@
+"""Attention-free Mamba2 LM (SSD) in PyTorch — the port of the JAX
+package's ``repro.models.mamba_lm`` (the mamba2-370m family).
+
+Parameters are ``{"embed", "layers": [{"m": block, "ln"}, ...],
+"final_norm"[, "unembed"]}``; the cache keeps the JAX layout, ``state``
+[L, B, H, P, N] float32 and ``conv`` [L, B, W-1, conv_dim].  The prefill
+runs each block's scan through the SSD kernel (``models.ssm``), one
+launch per layer.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import ssm
+
+F32 = torch.float32
+Params = Dict[str, Any]
+
+
+class Mamba2LM:
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.pdt = L.dtype_of(cfg.param_dtype)
+        self.cdt = L.dtype_of(cfg.dtype)
+
+    def init(self, gen: torch.Generator) -> Params:
+        """Random weights drawn on the CPU from ``gen``."""
+        cfg = self.cfg
+        params = {
+            "embed": L.embed_init(gen, (cfg.vocab_padded, cfg.d_model),
+                                  self.pdt),
+            "layers": [{"m": ssm.init_mamba_block(gen, cfg, self.pdt),
+                        "ln": torch.zeros((cfg.d_model,), dtype=self.pdt)}
+                       for _ in range(cfg.n_layers)],
+            "final_norm": torch.zeros((cfg.d_model,), dtype=self.pdt),
+        }
+        if not cfg.tie_embeddings:
+            params["unembed"] = L.dense_init(
+                gen, (cfg.d_model, cfg.vocab_padded), self.pdt)
+        return params
+
+    def _unembed(self, params):
+        return params["embed"].T if self.cfg.tie_embeddings \
+            else params["unembed"]
+
+    def _embed(self, params, tokens):
+        return params["embed"][tokens].to(self.cdt)
+
+    def _logits(self, params, x):
+        x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        return (x @ self._unembed(params).to(self.cdt)).to(F32)
+
+    def forward(self, params, batch) -> torch.Tensor:
+        """Full logits [B, S, V] (small inputs only; tests)."""
+        cfg = self.cfg
+        x = self._embed(params, batch["tokens"])
+        for lp in params["layers"]:
+            x = x + ssm.mamba_forward(
+                lp["m"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg)
+        return self._logits(params, x)
+
+    # ---------------- serve ----------------
+    def cache_spec(self, batch_size: int, max_len: int = 0
+                   ) -> Dict[str, Any]:
+        """{name: (shape, dtype)} of the decode cache (O(1) in length)."""
+        cfg = self.cfg
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+        return {
+            "state": ((cfg.n_layers, batch_size, cfg.ssm_heads,
+                       cfg.ssm_headdim, cfg.ssm_state), F32),
+            "conv": ((cfg.n_layers, batch_size, cfg.ssm_conv - 1, conv_dim),
+                     self.cdt),
+        }
+
+    def init_cache(self, batch_size: int, max_len: int = 0,
+                   device="cpu") -> Params:
+        return {name: torch.zeros(shape, dtype=dt, device=device)
+                for name, (shape, dt) in self.cache_spec(batch_size).items()}
+
+    def prefill(self, params, batch) -> Tuple[torch.Tensor, Params]:
+        """Last-token logits [B, V] and the per-layer SSD states and conv
+        histories."""
+        cfg = self.cfg
+        x = self._embed(params, batch["tokens"])
+        states, convs = [], []
+        for lp in params["layers"]:
+            y, st, conv = ssm.mamba_forward(
+                lp["m"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg,
+                return_cache=True)
+            x = x + y
+            states.append(st)
+            convs.append(conv)
+        logits = self._logits(params, x[:, -1:])[:, 0]
+        return logits, {"state": torch.stack(states),
+                        "conv": torch.stack(convs)}
+
+    def decode_step(self, params, cache, tokens) -> Tuple[torch.Tensor,
+                                                          Params]:
+        """tokens: [B] -> (logits [B, V], cache).  The cache's buffers are
+        updated in place (``ServeEngine.decode`` works on a copy)."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)[:, None]
+        for i, lp in enumerate(params["layers"]):
+            y, st, conv = ssm.mamba_step(
+                lp["m"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg,
+                cache["state"][i], cache["conv"][i])
+            x = x + y
+            cache["state"][i] = st
+            cache["conv"][i] = conv
+        return self._logits(params, x)[:, 0], cache

@@ -1,0 +1,200 @@
+"""Mamba2 (state-space duality) blocks in PyTorch — the port of the JAX
+package's ``repro.models.ssm``: chunked SSD forward and decode step.
+
+``ssd_reference`` (the O(S) sequential oracle) and ``ssd_chunked`` (all
+chunk states at once, then the carry) are plain torch, as in the JAX
+package.  ``mamba_forward`` — the Mamba2 prefill — calls the SSD kernel
+(``kernels.ssd.ssd_scan``) where the JAX code calls ``ssd_chunked``
+(``src/repro/models/ssm.py:168``): the CUDA kernel on the card, its plain
+version on the CPU.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ssd import ssd_scan
+from repro_torch.models.layers import dense_init, gated_rms_norm
+
+F32 = torch.float32
+Params = Dict[str, torch.Tensor]
+
+# ---------------------------------------------------------------------------
+# SSD core
+# ---------------------------------------------------------------------------
+
+
+def ssd_reference(x, dt, A, B, C, *, initial_state=None):
+    """Sequential scan oracle.  x: [b,s,h,p]; dt: [b,s,h]; A: [h];
+    B/C: [b,s,n].  Returns (y [b,s,h,p], final_state [b,h,p,n])."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    state = (torch.zeros((b, h, p, n), dtype=F32, device=x.device)
+             if initial_state is None else initial_state.to(F32))
+    ys = []
+    for t in range(s):
+        state, y = _step(state, x[:, t], dt[:, t], A, B[:, t], C[:, t])
+        ys.append(y)
+    return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def _step(state, x, dt, A, B, C):
+    dA = torch.exp(dt * A)                                      # [b,h]
+    dBx = torch.einsum("bhp,bn,bh->bhpn", x.to(F32), B.to(F32), dt)
+    state = state * dA[..., None, None] + dBx
+    y = torch.einsum("bhpn,bn->bhp", state, C.to(F32))
+    return state, y
+
+
+def ssd_chunked(x, dt, A, B, C, *, chunk: int, initial_state=None):
+    """Chunked SSD with the semantics of :func:`ssd_reference`: every
+    chunk's summary state at once, then the carry across chunks."""
+    b, s_orig, h, p = x.shape
+    n = B.shape[-1]
+    pad = (-s_orig) % chunk
+    if pad:  # dt = 0 in the tail: decay 1, no input, state unaffected
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+    s = x.shape[1]
+    nc = s // chunk
+    xc = x.reshape(b, nc, chunk, h, p).to(F32)
+    dtc = dt.reshape(b, nc, chunk, h).to(F32)
+    Bc = B.reshape(b, nc, chunk, n).to(F32)
+    Cc = C.reshape(b, nc, chunk, n).to(F32)
+
+    cum = torch.cumsum(dtc * A, dim=2)                          # [b,nc,l,h]
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # [b,nc,i,j,h]
+    mask = torch.ones(chunk, chunk, dtype=torch.bool,
+                      device=x.device).tril()[None, None, :, :, None]
+    Lmat = torch.where(mask, torch.exp(seg), torch.zeros_like(seg))
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    w = cb[..., None] * Lmat * dtc[:, :, None, :, :]
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", w, xc)
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)
+    states = torch.einsum("bclh,bclh,bcln,bclhp->bchpn", decay_to_end, dtc,
+                          Bc, xc)
+    chunk_decay = torch.exp(cum[:, :, -1, :])                   # [b,nc,h]
+    stat = (torch.zeros((b, h, p, n), dtype=F32, device=x.device)
+            if initial_state is None else initial_state.to(F32))
+    prev = []
+    for c in range(nc):                                         # entering c
+        prev.append(stat)
+        stat = stat * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)                      # [b,nc,h,p,n]
+    y_inter = torch.einsum("bclh,bcln,bchpn->bclhp", torch.exp(cum), Cc,
+                           prev_states)
+    y = (y_intra + y_inter).reshape(b, s, h, p)[:, :s_orig]
+    return y.to(x.dtype), stat
+
+
+def ssd_step(state, x, dt, A, B, C):
+    """Single decode step.  state: [b,h,p,n]; x: [b,h,p]; dt: [b,h];
+    B/C: [b,n]."""
+    state, y = _step(state, x, dt, A, B, C)
+    return state, y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block (projections + conv + SSD + gated norm)
+# ---------------------------------------------------------------------------
+
+
+def init_mamba_block(gen: torch.Generator, cfg: ModelConfig, pdt) -> Params:
+    d, di, n, nh, w = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                       cfg.ssm_heads, cfg.ssm_conv)
+    conv_dim = di + 2 * n
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    u = torch.rand(nh, generator=gen, dtype=F32) * (hi - lo) + lo
+    dt_bias = torch.log(torch.expm1(torch.exp(u)))
+    return {
+        "in_proj": dense_init(gen, (d, 2 * di + 2 * n + nh), pdt),
+        "conv_w": dense_init(gen, (w, conv_dim), pdt,
+                             scale=1.0 / math.sqrt(w)),
+        "conv_b": torch.zeros((conv_dim,), dtype=pdt),
+        "out_proj": dense_init(gen, (di, d), pdt),
+        "A_log": torch.log(torch.rand(nh, generator=gen, dtype=F32) * 15.0
+                           + 1.0),
+        "D": torch.ones((nh,), dtype=F32),
+        "dt_bias": dt_bias,
+        "norm_w": torch.zeros((di,), dtype=pdt),
+    }
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv as a shifted sum.  x: [B,S,C]; w: [W,C].
+    (Not ``F.conv1d``: cuDNN would run it in TF32.)"""
+    W = w.shape[0]
+    xp = F.pad(x, (0, 0, W - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(W):
+        out = out + xp[:, i: i + x.shape[1], :] * w[i]
+    return out + b
+
+
+def mamba_forward(p: Params, x, cfg: ModelConfig, *, initial_state=None,
+                  conv_init=None, return_cache: bool = False):
+    """Full-sequence Mamba2 block.  x: [B,S,d] -> [B,S,d] (and, with
+    ``return_cache``, the final SSD state and the conv history)."""
+    b, s, d = x.shape
+    di, n, nh, ph = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    cdt = x.dtype
+    zxbcdt = x @ p["in_proj"].to(cdt)
+    z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * n, nh], dim=-1)
+    conv_w, conv_b = p["conv_w"].to(cdt), p["conv_b"].to(cdt)
+    if conv_init is not None:
+        xbc_in = torch.cat([conv_init.to(cdt), xbc], dim=1)
+        xbc_conv = _causal_conv(xbc_in, conv_w, conv_b)[:, conv_init.shape[1]:]
+    else:
+        xbc_conv = _causal_conv(xbc, conv_w, conv_b)
+    xbc_conv = F.silu(xbc_conv)
+    xs, B, C = torch.split(xbc_conv, [di, n, n], dim=-1)
+    dt = F.softplus(dt_raw.to(F32) + p["dt_bias"])              # [B,S,H]
+    A = -torch.exp(p["A_log"])                                  # [H]
+    xh = xs.reshape(b, s, nh, ph)
+    y, final_state = ssd_scan(xh.contiguous(), dt.contiguous(), A,
+                              B.contiguous(), C.contiguous(),
+                              chunk=min(cfg.ssm_chunk, s),
+                              initial_state=initial_state)
+    y = y + xh * p["D"].to(cdt)[:, None]
+    y = y.reshape(b, s, di)
+    y = gated_rms_norm(y, z, p["norm_w"], cfg.norm_eps)
+    out = y @ p["out_proj"].to(cdt)
+    if return_cache:
+        w1 = cfg.ssm_conv - 1
+        hist = xbc if conv_init is None else \
+            torch.cat([conv_init.to(cdt), xbc], dim=1)
+        if hist.shape[1] >= w1:
+            conv_cache = hist[:, hist.shape[1] - w1:, :]
+        else:
+            conv_cache = F.pad(hist, (0, 0, w1 - hist.shape[1], 0))
+        return out, final_state, conv_cache
+    return out
+
+
+def mamba_step(p: Params, x, cfg: ModelConfig, state, conv_cache):
+    """One-token Mamba2 step.  x: [B,1,d]; state: [B,H,P,N] float32;
+    conv_cache: [B,W-1,conv_dim].  Returns (out [B,1,d], new_state,
+    new_conv_cache)."""
+    b = x.shape[0]
+    di, n, nh, ph = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    cdt = x.dtype
+    zxbcdt = x[:, 0] @ p["in_proj"].to(cdt)
+    z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * n, nh], dim=-1)
+    window = torch.cat([conv_cache.to(cdt), xbc[:, None]], dim=1)  # [B,W,cd]
+    conv_out = torch.einsum("bwc,wc->bc", window, p["conv_w"].to(cdt)) + \
+        p["conv_b"].to(cdt)
+    conv_out = F.silu(conv_out)
+    xs, B, C = torch.split(conv_out, [di, n, n], dim=-1)
+    dt = F.softplus(dt_raw.to(F32) + p["dt_bias"])               # [B,H]
+    A = -torch.exp(p["A_log"])
+    state, y = ssd_step(state, xs.reshape(b, nh, ph), dt, A, B, C)
+    y = y + xs.reshape(b, nh, ph) * p["D"].to(cdt)[:, None]
+    y = gated_rms_norm(y.reshape(b, di), z, p["norm_w"], cfg.norm_eps)
+    out = (y @ p["out_proj"].to(cdt))[:, None]
+    return out, state, window[:, 1:]

@@ -1,6 +1,7 @@
-"""The prefix-cache routing tier (host code): the FNA router, its cluster
-and the replay harness.  The JAX package's ``ServeEngine`` belongs to the
-LM stack and is not ported yet."""
+"""The serving tier: the prefix-cache router (host code: the FNA router,
+its cluster and the replay harness) and the model engine
+(``ServeEngine``: prefill and decode on the card)."""
+from repro_torch.serving.engine import ServeEngine
 from repro_torch.serving.prefix_cache import (
     ClusterConfig,
     FNARouter,
@@ -17,6 +18,6 @@ from repro_torch.serving.replay import (
     replay,
 )
 
-__all__ = ["PrefixCacheNode", "FNARouter", "PrefixServeCluster",
+__all__ = ["ServeEngine", "PrefixCacheNode", "FNARouter", "PrefixServeCluster",
            "ClusterConfig", "RouteStats", "REGIMES", "ReplayReport",
            "batch_sweep", "client_streams", "regime_config", "replay"]

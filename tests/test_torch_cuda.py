@@ -1,6 +1,6 @@
-"""The port on an NVIDIA GPU: the subset-DP and Bloom-probe CUDA kernels
-against their plain versions, and the simulator on the card against the
-same run on the CPU.
+"""The port on an NVIDIA GPU: the subset-DP, Bloom-probe, flash-attention
+and SSD CUDA kernels against their plain versions, and the simulator and
+the reduced serving path on the card against the same runs on the CPU.
 
 Every test here needs a card (``cuda`` marker) and skips without one; the
 file imports nothing of JAX, so it runs on a GPU host that has only
@@ -8,9 +8,11 @@ PyTorch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
-Tolerances: none.  Subset-DP products are compared byte for byte and
-argmins exactly; Bloom indications exactly; the exhaustive simulator
-results on the card equal the CPU's field for field.
+Tolerances: none for the simulator's kernels.  Subset-DP products are
+compared byte for byte and argmins exactly; Bloom indications exactly; the
+exhaustive simulator results on the card equal the CPU's field for field.
+The LM kernels are float32 arithmetic in another summation order: each
+test states its tolerance.
 """
 import dataclasses
 
@@ -176,3 +178,147 @@ def test_bloom_kernel_counts_launches_and_rejects_bad_inputs(card):
     with pytest.raises(ValueError):
         bloom.bloom_probe(bits, keys.cpu(), k=3)
     assert bloom.LAUNCHES == {"bloom_probe": 2}
+
+
+# ---------------------------------------------------------------------------
+# LM kernels: flash attention and the SSD scan
+# ---------------------------------------------------------------------------
+
+def _qkv(seed, b, sq, hq, hkv, d, dtype, dev, sk=None):
+    g = torch.Generator().manual_seed(seed)
+    sk = sq if sk is None else sk
+    return [torch.randn(s, generator=g).to(dtype).to(dev)
+            for s in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d", [
+    (1, 24, 24, 9, 3, 64), (2, 256, 256, 4, 2, 64), (1, 300, 300, 4, 1, 128),
+    (1, 1, 1, 2, 2, 16), (2, 77, 77, 6, 3, 32), (1, 40, 75, 4, 2, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain_on_card(card, b, sq, sk, hq, hkv, d,
+                                            causal):
+    """Float32 at 2e-5 (the JAX kernel tests' gate: summation order only);
+    bf16 at 3e-2 (p rounded to bf16 against a different running max)."""
+    from repro_torch.kernels import flash_attention as fa
+    if causal and sq != sk:
+        pytest.skip("causal masking is for prefill (Sq == Sk)")
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+        q, k, v = _qkv(sq + d, b, sq, hq, hkv, d, dtype, card, sk)
+        got = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_ref(q, k, v, causal=causal)
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_counts_launches_and_rejects_bad_inputs(card):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _qkv(0, 1, 16, 4, 2, 64, torch.float32, card)
+    fa.reset_launches()
+    fa.flash_attention(q, k, v)
+    fa.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    assert fa.LAUNCHES == {"flash_attention": 2}
+    bad = [(q.half(), k.half(), v.half()), (q, k.bfloat16(), v),
+           (q[..., :48].contiguous(), k[..., :48].contiguous(),
+            v[..., :48].contiguous()),
+           (q.transpose(1, 2), k, v), (q, k.cpu(), v),
+           (q[:, :, :3].contiguous(), k, v)]
+    for args in bad:
+        with pytest.raises(ValueError):
+            fa.flash_attention(*args)
+    assert fa.LAUNCHES == {"flash_attention": 2}
+
+
+def _ssd_inputs(seed, b, s, h, p, n, dtype, dev):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, s, h, p), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g)
+                                      - 1.0)
+    A = -torch.exp(torch.rand(h, generator=g) * 2 - 1)
+    B = torch.randn((b, s, n), generator=g)
+    C = torch.randn((b, s, n), generator=g)
+    return [x.to(dtype).to(dev), dt.to(dev), A.to(dev), B.to(dtype).to(dev),
+            C.to(dtype).to(dev)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 300, 32, 64, 128, 256), (2, 256, 4, 64, 64, 128),
+    (1, 128, 2, 32, 16, 32), (1, 24, 3, 16, 32, 24), (2, 1, 2, 64, 128, 1),
+    (1, 513, 2, 64, 128, 256)])
+def test_ssd_kernel_matches_plain_on_card(card, b, s, h, p, n, chunk):
+    """Float32 at 2e-3 (the JAX kernel tests' gate), with and without an
+    entering state; bf16 x, B, C at 3e-2 (one bf16 rounding of y)."""
+    from repro_torch.kernels import ssd
+    for dtype, tol in ((torch.float32, 2e-3), (torch.bfloat16, 3e-2)):
+        args = _ssd_inputs(s + h, b, s, h, p, n, dtype, card)
+        st0 = torch.randn((b, h, p, n), device=card,
+                          generator=torch.Generator(card).manual_seed(1))
+        for init in (None, st0):
+            y, st = ssd.ssd_scan(*args, chunk=chunk, initial_state=init)
+            torch.cuda.synchronize()
+            y_r, st_r = ssd.ssd_scan_ref(*args, chunk=chunk,
+                                         initial_state=init)
+            assert y.dtype == dtype and st.dtype == torch.float32
+            torch.testing.assert_close(y.float(), y_r.float(), rtol=tol,
+                                       atol=tol)
+            torch.testing.assert_close(st, st_r, rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_counts_launches_and_rejects_bad_inputs(card):
+    from repro_torch.kernels import ssd
+    args = _ssd_inputs(0, 1, 64, 2, 64, 128, torch.float32, card)
+    ssd.reset_launches()
+    ssd.ssd_scan(*args, chunk=32)
+    assert ssd.LAUNCHES == {"ssd_scan": 1}
+    x, dt, A, B, C = args
+    bad = [dict(args=(x.half(), dt, A, B.half(), C.half())),
+           dict(args=(x, dt.double(), A, B, C)),
+           dict(args=(x[..., :48].contiguous(), dt, A, B, C)),
+           dict(args=(x, dt, A, B[..., :126].contiguous(),
+                      C[..., :126].contiguous())),
+           dict(args=args, chunk=512),
+           dict(args=(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A,
+                      B, C)),
+           dict(args=(x, dt, A.cpu(), B, C))]
+    for case in bad:
+        with pytest.raises(ValueError):
+            ssd.ssd_scan(*case["args"], chunk=case.get("chunk", 32))
+    assert ssd.LAUNCHES == {"ssd_scan": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-370m"])
+def test_reduced_serve_path_card_equals_cpu(card, arch):
+    """The reduced float32 model on the card (kernels) against the CPU
+    (plain versions), same weights: prefill logits and caches at 1e-4,
+    greedy tokens equal, one kernel launch per layer per prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeEngine
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    cpu = ServeEngine(cfg, params=params, device="cpu")
+    gpu = ServeEngine(cfg, device=card,
+                      generator=torch.Generator().manual_seed(3))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 40))
+    fa.reset_launches()
+    ssd.reset_launches()
+    lg, cache = gpu.prefill(toks, max_len=48)
+    launches = fa.LAUNCHES["flash_attention"] + ssd.LAUNCHES["ssd_scan"]
+    assert launches == cfg.n_layers
+    lc, cache_c = cpu.prefill(toks, max_len=48)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for name in cache_c:
+        if name != "len":
+            torch.testing.assert_close(cache[name].cpu(), cache_c[name],
+                                       rtol=1e-4, atol=1e-4)
+    first = np.zeros(2, np.int32)
+    np.testing.assert_array_equal(gpu.decode(cache, first, 4)[0],
+                                  cpu.decode(cache_c, first, 4)[0])

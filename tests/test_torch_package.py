@@ -45,7 +45,17 @@ def test_port_imports_neither_jax_nor_reference():
     for name in ("repro_torch.kernels.bloom.ops",
                  "repro_torch.kernels.bloom.build", "repro_torch.kernels._build",
                  "repro_torch.serving.prefix_cache",
-                 "repro_torch.serving.replay", "repro_torch.launch.serve"):
+                 "repro_torch.serving.replay", "repro_torch.launch.serve",
+                 "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.kernels.flash_attention.build",
+                 "repro_torch.kernels.ssd.ops", "repro_torch.kernels.ssd.build",
+                 "repro_torch.configs.registry",
+                 "repro_torch.configs.smollm_135m",
+                 "repro_torch.configs.mamba2_370m",
+                 "repro_torch.models.layers", "repro_torch.models.transformer",
+                 "repro_torch.models.ssm", "repro_torch.models.mamba_lm",
+                 "repro_torch.models.registry", "repro_torch.models.convert",
+                 "repro_torch.serving.engine"):
         assert name in mods, name
     code = (
         "import importlib, sys\n"
@@ -87,6 +97,54 @@ def test_bloom_entry_points_raise_without_gpu(monkeypatch):
     assert bool(bloom.bloom_probe(bits[None], keys, k=3).all())
 
 
+def test_lm_entry_points_raise_without_gpu(monkeypatch):
+    """The serving engine, the weight draw and both LM kernel wrappers run
+    on the card by default; their inputs' device decides for a tensor."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("smollm-135m").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_main(["--requests", "1"])
+    assert ServeEngine(cfg, device="cpu").device == torch.device("cpu")
+    q = np.zeros((1, 4, 2, 16), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fa.flash_attention(q, q, q)
+    ssd_args = (q, np.full((1, 4, 2), 0.1, np.float32),
+                np.full(2, -1.0, np.float32), np.zeros((1, 4, 8), np.float32),
+                np.zeros((1, 4, 8), np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ssd.ssd_scan(*ssd_args, chunk=4)
+    assert fa.flash_attention(q, q, q, device="cpu").device.type == "cpu"
+    y, st = ssd.ssd_scan(*ssd_args, chunk=4, device="cpu")
+    assert y.shape == (1, 4, 2, 16) and st.shape == (1, 2, 16, 8)
+    meta = torch.empty((1, 4, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_attention(meta, meta, meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ssd.ssd_scan(meta, torch.empty((1, 4, 2), device="meta"),
+                     torch.empty(2, device="meta"),
+                     torch.empty((1, 4, 8), device="meta"),
+                     torch.empty((1, 4, 8), device="meta"), chunk=4)
+
+
+def test_other_families_raise_not_implemented():
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    for arch in ("qwen3-moe-30b-a3b", "internvl2-1b", "seamless-m4t-medium",
+                 "zamba2-7b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+            get_model(get_config(arch).reduced())
+
+
 def test_cpu_tensors_take_plain_path_without_counting():
     before = dict(ops.LAUNCHES)
     rhos = torch.full((4, 3), 0.5, dtype=torch.float64)
@@ -114,7 +172,11 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
         "import repro_torch.kernels.bloom.build as bloom_build\n"
         "import repro_torch.cachesim.engine\n"
         "import repro_torch.serving, repro_torch.launch.serve\n"
-        "for b in (build, bloom_build):\n"
+        "import repro_torch.kernels.flash_attention.build as fa_build\n"
+        "import repro_torch.kernels.ssd.build as ssd_build\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.kernels.ssd.ops, repro_torch.models\n"
+        "for b in (build, bloom_build, fa_build, ssd_build):\n"
         "    try:\n"
         "        b.nvcc_path()\n"
         "    except RuntimeError as e:\n"
@@ -123,3 +185,5 @@ def test_kernel_module_imports_without_nvcc(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "NO_NVCC subsetdp.cu True" in proc.stdout, proc.stdout
     assert "NO_NVCC bloom.cu True" in proc.stdout, proc.stdout
+    assert "NO_NVCC flash.cu True" in proc.stdout, proc.stdout
+    assert "NO_NVCC ssd.cu True" in proc.stdout, proc.stdout

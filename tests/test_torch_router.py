@@ -248,7 +248,12 @@ def test_serve_main_replay_argv(tmp_path, capsys):
     assert untimed(port_out) == untimed(ref_out) and len(untimed(port_out)) == 2
 
 
-def test_serve_main_without_replay_exits_nonzero(capsys):
+def test_serve_main_without_replay_exits_nonzero(monkeypatch):
+    """Without ``--replay`` the launcher runs the model path, on ``cuda``
+    unless ``--device cpu`` is given: with no GPU visible it refuses
+    (a raised error, so the process exits nonzero) instead of carrying on
+    on the CPU."""
     from repro_torch.launch.serve import main
-    assert main(["--requests", "10"]) == 2
-    assert "ROADMAP A8" in capsys.readouterr().err
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--requests", "10"])
