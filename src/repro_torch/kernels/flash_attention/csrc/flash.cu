@@ -1,12 +1,15 @@
-// Flash-attention forward (GQA, causal or not) for Hopper (sm_90a).
+// Flash-attention forward (GQA, causal or not) in float32 on the CUDA
+// cores, for Hopper (sm_90a).  The bf16 inputs take the tensor-core kernel
+// in flash_wgmma.cu; this one serves float32, whose 2e-5 gate a TF32
+// tensor-core product could not hold.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/flash.py:32
-// (_flash_kernel, wrapper flash_attention_pallas).  That kernel walks a
-// sequential grid (B, Hq, nQ, nK) and carries the online-softmax state
-// (m, l, acc) in VMEM scratch from one KV block to the next.  Here blocks
-// run in parallel and in no order, so one block owns one (batch, query
-// head, 32-row query tile) and loops over the KV tiles itself, with m, l
-// and acc in registers.
+// (_flash_kernel, wrapper flash_attention_pallas) for float32 inputs.
+// That kernel walks a sequential grid (B, Hq, nQ, nK) and carries the
+// online-softmax state (m, l, acc) in VMEM scratch from one KV block to
+// the next.  Here blocks run in parallel and in no order, so one block
+// owns one (batch, query head, 32-row query tile) and loops over the KV
+// tiles itself, with m, l and acc in registers.
 //
 // Layout: q [B,Sq,Hq,D], k/v [B,Sk,Hkv,D], o [B,Sq,Hq,D] (the model's
 // layout, contiguous); query head h reads KV head h / (Hq / Hkv), so the
@@ -15,22 +18,18 @@
 // sq % block_q == 0 rule was its tiling, not the function's).
 //
 // Arithmetic kept from the TPU kernel: q is cast to float32 and then
-// scaled (flash.py:50); scores, m, l and acc are float32; a causally
-// masked score is -1e30 (flash.py:29); p is rounded to v's type before
-// the PV product (flash.py:64), l sums it unrounded; the final divide
-// clamps l at 1e-30 (flash.py:69).  Causal masking compares positions that
-// both start at 0 (query i sees keys j <= i, flash.py:44,55-57): prefill
-// only.  KV tiles wholly above the diagonal are not visited.
+// scaled (flash.py:50); scores, m, l, p and acc are float32 (flash.py:52
+// casts v to float32, so p.astype(v.dtype) at :64 keeps p in float32); a
+// causally masked score is -1e30 (flash.py:29); the final divide clamps l
+// at 1e-30 (flash.py:69).  Causal masking compares positions that both
+// start at 0 (query i sees keys j <= i, flash.py:44,55-57): prefill only.
+// KV tiles wholly above the diagonal are not visited.
 //
-// What bounds it: in bf16 at the serving shapes the bytes (q, k, v read
-// once, o written once) and the launch; at long prefills the operations
-// (4 * Hq * D * Sq * (Sq + 1) / 2 flops causal).  This first version does
-// its products on the CUDA cores in float32, not on the tensor cores:
-// four threads share a query row, each holding D/4 of q and of acc, the
-// KV tile staged in shared memory as float32 and read as float4
-// broadcasts, the four partial dot products summed with warp shuffles.
-// wgmma, TMA and a pipeline of KV tiles are later work.
-#include <cuda_bf16.h>
+// What bounds it: at long prefills the operations (4 * Hq * D * Sq *
+// (Sq + 1) / 2 flops causal), here float32 FMAs on the CUDA cores: four
+// threads share a query row, each holding D/4 of q and of acc, the KV tile
+// staged in shared memory as float32 and read as float4 broadcasts, the
+// four partial dot products summed with warp shuffles.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -42,28 +41,10 @@ constexpr int BK = 32;               // keys per staged KV tile
 constexpr int THREADS = BQ * LANES;  // 128
 constexpr float MASKED = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// x rounded to T and back (p rounded to v's type before the PV product)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
                  int Hq, int Hkv, int causal, float scale) {
   constexpr int V4 = D / (4 * LANES);  // float4 groups of q/acc per thread
   __shared__ __align__(16) float ks[BK][D];
@@ -83,7 +64,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int d = 16 * g + 4 * lane + c;
-      qr[g][c] = live ? to_f(q[qoff + d]) * scale : 0.f;
+      qr[g][c] = live ? q[qoff + d] * scale : 0.f;
       acc[g][c] = 0.f;
     }
   float m = MASKED, l = 0.f;
@@ -97,8 +78,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kx = 0.f, vx = 0.f;
       if (kj < Sk) {
         const long long off = ((long long)(b * (long long)Sk + kj) * Hkv + hk) * D + d;
-        kx = to_f(k[off]);
-        vx = to_f(v[off]);
+        kx = k[off];
+        vx = v[off];
       }
       ks[j][d] = kx;
       vs[j][d] = vx;
@@ -129,9 +110,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float psum = 0.f;
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
-      const float p = expf(s[j] - m_new);
-      psum += p;
-      s[j] = round_to<T>(p);
+      s[j] = expf(s[j] - m_new);
+      psum += s[j];
     }
     l = l * alpha + psum;
 #pragma unroll
@@ -157,49 +137,38 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int g = 0; g < V4; ++g)
 #pragma unroll
       for (int c = 0; c < 4; ++c)
-        o[qoff + 16 * g + 4 * lane + c] = from_f<T>(acc[g][c] / fmaxf(l, 1e-30f));
+        o[qoff + 16 * g + 4 * lane + c] = acc[g][c] / fmaxf(l, 1e-30f);
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Sq, int Sk, int Hq, int Hkv, int causal,
                    float scale, cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, Hq, Hkv, causal,
-      scale);
+  flash_fwd_kernel<D><<<grid, THREADS, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, Hq, Hkv,
+      causal, scale);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       void* o, int B, int Sq, int Sk, int Hq, int Hkv,
-                       int causal, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v and o alike).  Returns the launch's
-// CUDA error code (0 on success); the wrapper checks every argument first.
-extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int B, int Sq,
-                                   int Sk, int Hq, int Hkv, int D, int dtype,
-                                   int causal, float scale, void* stream) {
+// q, k, v and o float32.  Returns the launch's CUDA error code (0 on
+// success); the wrapper checks every argument first.
+extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
+                                       const void* v, void* o, int B, int Sq,
+                                       int Sk, int Hq, int Hkv, int D,
+                                       int causal, float scale, void* stream) {
   if (B < 1 || Sq < 1 || Sk < 1 || Hkv < 1 || Hq % Hkv != 0)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
-  return cudaErrorInvalidValue;
+  switch (D) {
+    case 16: return launch<16>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
+    case 32: return launch<32>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
+    case 64: return launch<64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
+    case 128: return launch<128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

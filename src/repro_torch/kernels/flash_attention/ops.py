@@ -6,14 +6,17 @@ as the JAX package's ``kernels.flash_attention.ops.flash_attention``
 does (that wrapper transposes to head-major for the Pallas kernel; the
 CUDA kernel reads the model layout directly).
 
-Dispatch is by the device of the tensors: a CUDA tensor launches the
-hand-written kernel (``csrc/flash.cu``, built at first use by
-``build.py``) or raises on a type, shape or layout the kernel does not
-take; a CPU tensor takes the plain version (``ref.py``).  NumPy inputs
-are placed on ``device`` first, which defaults to ``cuda`` (and raises
+Dispatch is by the device of the tensors: a CUDA tensor launches a
+hand-written kernel, chosen by type — bf16 the tensor-core kernel
+(``csrc/flash_wgmma.cu``: wgmma, TMA loads and stores), float32 the
+CUDA-core kernel (``csrc/flash.cu``), both built at first use by
+``build.py`` — or raises on a type, shape or layout neither takes; a
+CPU tensor takes the plain version (``ref.py``).  NumPy inputs are
+placed on ``device`` first, which defaults to ``cuda`` (and raises
 without a GPU).  The TPU wrapper's ``block_q``/``block_k`` and its
-``sq % block_q == 0`` rule have no counterpart: any Sq and Sk are taken.  Causal masking assumes that
-query and key positions both start at 0 — prefill, not decode.
+``sq % block_q == 0`` rule have no counterpart: any Sq and Sk are
+taken.  Causal masking assumes that query and key positions both start
+at 0 — prefill, not decode.
 
 ``LAUNCHES`` counts kernel launches (the plain path counts nothing).
 """
@@ -29,7 +32,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 LAUNCHES = {"flash_attention": 0}
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128)
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
@@ -72,17 +75,22 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
-    if max(b, hq) > 65535 or b * sq * hq * d >= 1 << 62:
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("bf16 q, k, v must start on a 16-byte boundary "
+                         "(TMA loads)")
+    if max(b, hq, -(-sq // 64)) > 65535 or b * sq * hq * d >= 1 << 62:
         raise ValueError(f"shape {tuple(q.shape)} exceeds the launch grid")
     out = torch.empty_like(q)
-    from repro_torch.kernels.flash_attention.build import load
-    lib = load()
+    from repro_torch.kernels.flash_attention import build
+    if bf16:
+        fn = build.KERNEL_BF16.load().flash_attention_fwd_bf16
+    else:
+        fn = build.KERNEL.load().flash_attention_fwd_f32
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            sk, hq, hkv, d, DTYPES[q.dtype], int(bool(causal)), d ** -0.5,
-            stream)
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                  sq, sk, hq, hkv, d, int(bool(causal)), d ** -0.5, stream)
     if code != 0:
         raise RuntimeError(f"flash-attention kernel launch failed: CUDA "
                            f"error {code}")

@@ -3,12 +3,13 @@
 It computes what ``csrc/flash.cu`` computes, with the TPU kernel's
 arithmetic conventions (``src/repro/kernels/flash_attention/flash.py``):
 q is cast to float32 and then scaled by D^-1/2; scores are float32; a
-masked score is -1e30; the probabilities are rounded to v's type before
-the PV product while the denominator sums them unrounded; the final
-divide clamps the denominator at 1e-30.  The kernel folds the key axis
-in tiles with an online softmax; this version takes each row's softmax
-over all keys at once, so the two differ only by float32 rounding (and,
-in bf16, by where p is rounded relative to the running maximum).
+masked score is -1e30; the PV product takes p in float32 (the TPU kernel
+casts v to float32 at ``flash.py:52``, so its ``p.astype(v.dtype)`` at
+``:64`` keeps p in float32) and the denominator sums the same p; the
+final divide clamps the denominator at 1e-30.  Only o is rounded to q's
+type.  The kernels fold the key axis in tiles with an online softmax;
+this version takes each row's softmax over all keys at once, so the two
+differ only by float32 rounding.
 
 Causal masking compares positions that both start at 0 (query i sees
 keys j <= i), as the TPU kernel and ``attention_naive`` do: prefill only.
@@ -36,7 +37,6 @@ def flash_attention_ref(q, k, v, *, causal: bool = True) -> torch.Tensor:
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    acc = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).to(F32),
-                       v.to(F32))
+    acc = torch.einsum("bhgqk,bkhd->bhgqd", p, v.to(F32))
     o = acc / torch.clamp(l, min=1e-30)                       # [B,Hkv,G,Sq,D]
     return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)

@@ -14,11 +14,8 @@ NVCC_FLAGS = BASE_FLAGS
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_scan_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                                 ci, ci, ci, ci, vp]
+    lib.ssd_scan_fwd.argtypes = [vp] * 11 + [ci] * 7 + [vp]
     lib.ssd_scan_fwd.restype = ci
-    lib.ssd_scan_smem_bytes.argtypes = [ci, ci, ci]
-    lib.ssd_scan_smem_bytes.restype = ctypes.c_longlong
 
 
 KERNEL = KernelLibrary(SOURCE, NVCC_FLAGS, _declare)

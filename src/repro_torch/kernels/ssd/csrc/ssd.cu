@@ -1,48 +1,60 @@
-// Mamba2 SSD (state-space duality) chunked scan for Hopper (sm_90a).
+// Mamba2 SSD (state-space duality) chunked scan for Hopper (sm_90a),
+// chunk-parallel in five stages.
 //
 // Replaces the TPU kernel src/repro/kernels/ssd/ssd.py:28 (_ssd_kernel,
 // wrapper ssd_pallas).  That kernel walks a sequential grid (b, h, chunk)
-// and carries the state [P, N] in VMEM scratch from chunk to chunk.  Here
-// one block owns one (batch, head), loops over the chunks itself, and
-// keeps the float32 state in shared memory (32 KB at P = 64, N = 128).
-// Per chunk of L rows (ssd.py:44-62):
+// and carries the state [P, N] in VMEM from chunk to chunk.  On this card
+// a walk per (batch, head) would give 32 blocks to 132 SMs at mamba2-370m,
+// each doing its chunks in sequence.  Here the work is split as
+// models.ssm.ssd_chunked splits it: everything that does not depend on
+// the entering state is done for all chunks at once, and only a cheap
+// elementwise carry runs in chunk order.  Per chunk of L rows
+// (ssd.py:44-62):
 //
 //   cum    = inclusive cumsum of dt * A
-//   y[i]   = exp(cum_i) (C_i . state)                           inter-chunk
-//          + sum_{j<=i} exp(cum_i - cum_j) dt_j (C_i . B_j) x_j  intra-chunk
-//   state  = state exp(cum_L) + sum_j exp(cum_L - cum_j) dt_j x_j (x) B_j
+//   y[i]   = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j   intra
+//          + exp(cum_i) (C_i . state_in)                          inter
+//   state  = state_in exp(cum_L) + sum_j exp(cum_L - cum_j) dt_j x_j (x) B_j
 //
-// Shared memory: C of the chunk as float32 with a padded row stride (L x
-// (N + 4): 132 KB at L = 256, N = 128), the state, and B and x streamed
-// in tiles of 32 rows — B and C of a whole chunk in float32 would not fit
-// beside the state in the 227 KB a block may have, and the [L, L] decay
-// matrix is never staged.  One thread per chunk row i keeps y[i] (P
-// floats) in registers; the intra-chunk weight exp(cum_i - cum_j) is taken
-// only for j <= i (the upper triangle overflows, and inf * 0 would be
-// NaN).  Each thread also owns P*N/256 state entries and accumulates their
-// update in registers while the B and x tiles stream past.  A sequence
-// that is not a multiple of L reads zeros past its end (dt = 0 there: the
-// state is unchanged, as ssd_chunked's zero padding gives) and writes no y
-// there.
+// Each call launches five kernels on the current stream (the wrapper
+// counts the call once):
+//   1. ssd_cumsum_kernel: cum for each (b, h, chunk), one warp a row, a
+//      shuffle scan;
+//   2. ssd_cb_kernel: CB = C_c . B_c^T once per (b, chunk) for all heads
+//      (the heads share B and C), the lower 64 x 64 tiles of [L, L]; bf16
+//      on the tensor cores (mma.sync m16n8k16, float32 accumulate: the
+//      products of bf16 values are exact in float32, only the order of
+//      the sums changes), float32 on the CUDA cores;
+//   3. ssd_states_kernel: the chunk states S_c [P, N], grid (b, chunk,
+//      N-tile) x h;
+//   4. ssd_carry_kernel: for each (b, h) and float4 of the state, walk the
+//      chunks in order: state_in[c] = carry (written over S_c), carry =
+//      carry exp(cum_L[c]) + S_c; the last carry is the final state;
+//   5. ssd_out_kernel: y for each (b, chunk, 64-row tile) x h, intra and
+//      inter terms.
+// Stages 3 and 5 are float32 products on the CUDA cores, register-tiled:
+// each thread owns a 4 x 4 output tile and reads two float4 from shared
+// memory per 16 multiply-adds (the weights exp(.) dt and the states are
+// float32: a tensor-core product would have to split them in bf16 parts).
+// exp(cum_i - cum_j) is taken only for j <= i: above the diagonal it
+// overflows, and inf * 0 would be NaN.  Rows past the sequence read as
+// zeros (dt = 0 keeps the state, as ssd_chunked's zero padding gives) and
+// write no y.
 //
-// What bounds it: the operations, float32 on the CUDA cores (C.B^T is
-// L^2/2 * N multiply-adds per chunk, the PV-like sum L^2/2 * P, the
-// inter-chunk product and the state update L * P * N each, per head).
-// This first version recomputes C.B^T for every head (the heads of one
-// batch row share B and C) and runs B * H blocks: 32 at mamba2-370m with
-// one sequence, on 132 SMs.  Splitting the chunks across blocks (the
-// chunk states first, then the carry), wgmma for the products and TMA for
-// the tiles are later work.
+// What bounds it on an H100: the operations (at mamba2-370m, [1, 4096, 32,
+// 64], N 128, L 256: 0.13 GFLOP of C.B^T on the tensor cores and 6.4 GFLOP
+// of float32 on the CUDA cores), and at short prefills the five launches.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;  // one thread per chunk row: L <= 256
-constexpr int TJ = 32;        // rows of B and x per streamed tile
-constexpr int ST_MAX = 32;    // state entries per thread: P * N <= 8192
-constexpr int CPAD = 4;       // C row padding (floats): 16-byte rows, banks shifted
+constexpr int T64 = 64;   // rows of a CB / output tile
+constexpr int JT = 32;    // rows (or n) per staged reduction tile
+constexpr int PAD = 4;    // floats of row padding where a tile is written
+                          // transposed (4-way instead of 32-way conflicts)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -57,213 +69,392 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-__host__ __device__ constexpr size_t smem_floats(int L, int P, int N) {
-  return (size_t)L * (N + CPAD) + (size_t)P * N + (size_t)TJ * (N + P) + 3 * (size_t)L;
+// acc[r][c] += a[r] * b[c] over a 4 x 4 tile (a, b float4 from shared)
+__device__ __forceinline__ void mac4x4(float (&acc)[4][4], const float4 a,
+                                       const float4 b) {
+  const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] += av[r] * bv[c];
 }
 
-template <typename T, int P>
-__global__ void __launch_bounds__(THREADS, 1)
-ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-               const float* __restrict__ A, const T* __restrict__ Bm,
-               const T* __restrict__ Cm, const float* __restrict__ init_state,
-               T* __restrict__ y, float* __restrict__ final_state, int S,
-               int H, int N, int L) {
-  extern __shared__ __align__(16) float smem[];
-  const int cs = N + CPAD;
-  float* c_s = smem;                 // [L][cs]
-  float* st_s = c_s + L * cs;        // [P][N]
-  float* b_s = st_s + P * N;         // [TJ][N]
-  float* x_s = b_s + TJ * N;         // [TJ][P]
-  float* cum_s = x_s + TJ * P;       // [L]
-  float* dt_s = cum_s + L;           // [L]
-  float* end_s = dt_s + L;           // [L]  exp(cum_L - cum_j) dt_j
+__device__ __forceinline__ const float4& f4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 
-  const int h = blockIdx.x, b = blockIdx.y, t = threadIdx.x;
+// ---------------------------------------------------------------------------
+// 1. cumsum: row r = (b * H + h) * nc + c of cum [b, H, nc, L]
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(128)
+ssd_cumsum_kernel(const float* __restrict__ dt, const float* __restrict__ A,
+                  float* __restrict__ cum, int rows, int S, int H, int nc,
+                  int L) {
+  const int r = blockIdx.x * 4 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (r >= rows) return;
+  const int c = r % nc, bh = r / nc, h = bh % H, b = bh / H;
   const float a = A[h];
-  const int PN = P * N;
-  const long long bh = (long long)b * H + h;
-  for (int e = t; e < PN; e += THREADS)
-    st_s[e] = init_state ? init_state[bh * PN + e] : 0.f;
-
-  const int i = t;              // this thread's chunk row
-  const bool row = i < L;
-  const int nchunks = (S + L - 1) / L;
-  for (int c = 0; c < nchunks; ++c) {
-    const int s0 = c * L;
-    __syncthreads();  // last chunk's state update and tile reads are done
-    for (int r = t; r < L; r += THREADS) {
-      const int si = s0 + r;
-      dt_s[r] = si < S ? dt[((long long)b * S + si) * H + h] : 0.f;
-    }
-    for (int idx = t; idx < L * N; idx += THREADS) {
-      const int r = idx / N, n = idx % N, si = s0 + r;
-      c_s[r * cs + n] = si < S ? to_f(Cm[((long long)b * S + si) * N + n]) : 0.f;
-    }
-    __syncthreads();
-    if (t == 0) {
-      float run = 0.f;
-      for (int r = 0; r < L; ++r) {
-        run += dt_s[r] * a;
-        cum_s[r] = run;
-      }
-    }
-    __syncthreads();
-    const float cum_end = cum_s[L - 1];
-    for (int r = t; r < L; r += THREADS)
-      end_s[r] = expf(cum_end - cum_s[r]) * dt_s[r];
-
-    // inter-chunk term from the state entering the chunk
-    float acc[P];
-    const float cum_i = row ? cum_s[i] : 0.f;
+  const int per = (L + 31) / 32, p0 = lane * per, s0 = c * L;
+  float v[8];
+  float run = 0.f;
 #pragma unroll
-    for (int p = 0; p < P; ++p) acc[p] = 0.f;
-    if (row) {
-      for (int n = 0; n < N; n += 4) {
-        const float4 c4 = *reinterpret_cast<const float4*>(&c_s[i * cs + n]);
+  for (int e = 0; e < 8; ++e) {
+    const int pos = p0 + e, si = s0 + pos;
+    const float d = (e < per && pos < L && si < S)
+                        ? dt[((long long)b * S + si) * H + h] : 0.f;
+    run += d * a;
+    v[e] = run;
+  }
+  float pre = run;  // inclusive scan of the lanes' totals
 #pragma unroll
-        for (int p = 0; p < P; ++p) {
-          const float4 s4 = *reinterpret_cast<const float4*>(&st_s[p * N + n]);
-          acc[p] += c4.x * s4.x + c4.y * s4.y + c4.z * s4.z + c4.w * s4.w;
-        }
-      }
-      const float e_i = expf(cum_i);
+  for (int sh = 1; sh < 32; sh <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, pre, sh);
+    if (lane >= sh) pre += o;
+  }
+  const float base = pre - run;
+  float* out = cum + (long long)r * L;
 #pragma unroll
-      for (int p = 0; p < P; ++p) acc[p] *= e_i;
-    }
+  for (int e = 0; e < 8; ++e)
+    if (e < per && p0 + e < L) out[p0 + e] = base + v[e];
+}
 
-    float sacc[ST_MAX];
-#pragma unroll
-    for (int k = 0; k < ST_MAX; ++k) sacc[k] = 0.f;
+// ---------------------------------------------------------------------------
+// 2. CB [b, nc, L, L] = C_c . B_c^T, lower 64 x 64 tiles only
+// ---------------------------------------------------------------------------
+constexpr int CB_THREADS = 256;
+constexpr int KC = 64;          // n per staged chunk
+constexpr int KPAD = KC + 8;    // bf16 row stride: conflict-free fragments
 
-    for (int j0 = 0; j0 < L; j0 += TJ) {
-      __syncthreads();  // previous tile consumed (and end_s written)
-      for (int idx = t; idx < TJ * N; idx += THREADS) {
-        const int j = idx / N, n = idx % N, sj = s0 + j0 + j;
-        b_s[idx] = (j0 + j < L && sj < S)
-                       ? to_f(Bm[((long long)b * S + sj) * N + n]) : 0.f;
-      }
-      for (int idx = t; idx < TJ * P; idx += THREADS) {
-        const int j = idx / P, p = idx % P, sj = s0 + j0 + j;
-        x_s[idx] = (j0 + j < L && sj < S)
-                       ? to_f(x[(((long long)b * S + sj) * H + h) * P + p]) : 0.f;
+__device__ __forceinline__ void tri_tile(int t, int& ti, int& tj) {
+  ti = 0;
+  while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
+  tj = t - ti * (ti + 1) / 2;
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(CB_THREADS)
+ssd_cb_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
+              float* __restrict__ cb, int S, int N, int L, int nc, int ntri) {
+  const int tri = blockIdx.x % ntri, bc = blockIdx.x / ntri;
+  const int c = bc % nc, b = bc / nc;
+  int ti, tj;
+  tri_tile(tri, ti, tj);
+  const int i0 = ti * T64, j0 = tj * T64, s0 = c * L;
+  const int tid = threadIdx.x;
+  float* out = cb + (long long)bc * L * L;
+  // row r of a tile at chunk row t0 + r: its sequence row, or -1 if none
+  auto seq = [&](int t0, int r) {
+    const int i = t0 + r;
+    return (i < L && s0 + i < S) ? s0 + i : -1;
+  };
+
+  if constexpr (sizeof(T) == 2) {
+    __shared__ __align__(16) __nv_bfloat16 cs[T64][KPAD], bs[T64][KPAD];
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int wr = (warp % 4) * 16, wc = (warp / 4) * 32;  // warp's 16 x 32
+    float acc[4][4] = {};
+    for (int n0 = 0; n0 < N; n0 += KC) {
+      __syncthreads();
+      for (int e = tid; e < T64 * KC; e += CB_THREADS) {
+        const int r = e / KC, k = e % KC, n = n0 + k;
+        const int si = seq(i0, r), sj = seq(j0, r);
+        const __nv_bfloat16 z = __float2bfloat16(0.f);
+        cs[r][k] = (si >= 0 && n < N) ? Cm[((long long)b * S + si) * N + n] : z;
+        bs[r][k] = (sj >= 0 && n < N) ? Bm[((long long)b * S + sj) * N + n] : z;
       }
       __syncthreads();
-      const int jn = min(TJ, L - j0);
-
-      // intra-chunk: rows i >= j0 see some j of this tile
-      if (row && i >= j0) {
-        float dot[TJ];
 #pragma unroll
-        for (int j = 0; j < TJ; ++j) dot[j] = 0.f;
-        for (int n = 0; n < N; n += 4) {
-          const float4 c4 = *reinterpret_cast<const float4*>(&c_s[i * cs + n]);
+      for (int kk = 0; kk < KC; kk += 16) {
+        uint32_t a[4];
+        a[0] = *reinterpret_cast<const uint32_t*>(&cs[wr + g][kk + 2 * t]);
+        a[1] = *reinterpret_cast<const uint32_t*>(&cs[wr + g + 8][kk + 2 * t]);
+        a[2] = *reinterpret_cast<const uint32_t*>(&cs[wr + g][kk + 8 + 2 * t]);
+        a[3] = *reinterpret_cast<const uint32_t*>(&cs[wr + g + 8][kk + 8 + 2 * t]);
 #pragma unroll
-          for (int j = 0; j < TJ; ++j) {
-            const float4 b4 = *reinterpret_cast<const float4*>(&b_s[j * N + n]);
-            dot[j] += c4.x * b4.x + c4.y * b4.y + c4.z * b4.z + c4.w * b4.w;
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < TJ; ++j) {
-          const int jj = j0 + j;
-          if (jj <= i) {  // i < L, so jj < L too
-            const float w = dot[j] * expf(cum_i - cum_s[jj]) * dt_s[jj];
-#pragma unroll
-            for (int p = 0; p < P; p += 4) {
-              const float4 x4 = *reinterpret_cast<const float4*>(&x_s[j * P + p]);
-              acc[p] += w * x4.x;
-              acc[p + 1] += w * x4.y;
-              acc[p + 2] += w * x4.z;
-              acc[p + 3] += w * x4.w;
-            }
-          }
-        }
-      }
-
-      // state update of this thread's entries e = t + k * THREADS
-#pragma unroll
-      for (int k = 0; k < ST_MAX; ++k) {
-        const int e = t + k * THREADS;
-        if (e < PN) {
-          const int p = e / N, n = e % N;
-          float sum = sacc[k];
-          for (int j = 0; j < jn; ++j)
-            sum += end_s[j0 + j] * x_s[j * P + p] * b_s[j * N + n];
-          sacc[k] = sum;
+        for (int n8 = 0; n8 < 4; ++n8) {
+          const int col = wc + 8 * n8 + g;
+          mma_bf16(acc[n8], a,
+                   *reinterpret_cast<const uint32_t*>(&bs[col][kk + 2 * t]),
+                   *reinterpret_cast<const uint32_t*>(&bs[col][kk + 8 + 2 * t]));
         }
       }
     }
-    __syncthreads();  // every read of the entering state is done
-    const float decay = expf(cum_end);
 #pragma unroll
-    for (int k = 0; k < ST_MAX; ++k) {
-      const int e = t + k * THREADS;
-      if (e < PN) st_s[e] = st_s[e] * decay + sacc[k];
-    }
-    if (row && s0 + i < S) {
-      T* yo = y + (((long long)b * S + s0 + i) * H + h) * P;
+    for (int n8 = 0; n8 < 4; ++n8)
 #pragma unroll
-      for (int p = 0; p < P; ++p) yo[p] = from_f<T>(acc[p]);
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + wr + g + 8 * (e / 2);
+        const int j = j0 + wc + 8 * n8 + 2 * t + (e % 2);
+        if (i < L && j < L) out[(long long)i * L + j] = acc[n8][e];
+      }
+  } else {
+    __shared__ __align__(16) float ct[JT][T64 + PAD], bt[JT][T64 + PAD];
+    const int tr = tid / 16, tc = tid % 16;
+    float acc[4][4] = {};
+    for (int n0 = 0; n0 < N; n0 += JT) {
+      __syncthreads();
+      for (int e = tid; e < T64 * JT; e += CB_THREADS) {
+        const int r = e / JT, k = e % JT, n = n0 + k;
+        const int si = seq(i0, r), sj = seq(j0, r);
+        ct[k][r] = (si >= 0 && n < N) ? to_f(Cm[((long long)b * S + si) * N + n]) : 0.f;
+        bt[k][r] = (sj >= 0 && n < N) ? to_f(Bm[((long long)b * S + sj) * N + n]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int k = 0; k < JT; ++k)
+        mac4x4(acc, f4(&ct[k][4 * tr]), f4(&bt[k][4 * tc]));
     }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = i0 + 4 * tr + r, j = j0 + 4 * tc + q;
+        if (i < L && j < L) out[(long long)i * L + j] = acc[r][q];
+      }
   }
-  __syncthreads();
-  for (int e = t; e < PN; e += THREADS) final_state[bh * PN + e] = st_s[e];
+}
+
+// ---------------------------------------------------------------------------
+// 3. chunk states st [b, H, nc, P, N]: S_c = sum_j w_j x_j (x) B_j
+// ---------------------------------------------------------------------------
+// The reduction over the chunk's rows runs in tiles of JT rows; the row
+// weights w_j = exp(cum_L - cum_j) dt_j are taken once a row.
+template <typename T, int P>
+__global__ void __launch_bounds__(128)
+ssd_states_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                  const T* __restrict__ Bm, const float* __restrict__ cum,
+                  float* __restrict__ st, int S, int H, int N, int L, int nc,
+                  int ntile) {
+  constexpr int NT = 2048 / P;  // state columns per block
+  __shared__ __align__(16) float xs[JT][P], bs[JT][NT];
+  __shared__ float w_s[256];
+  const int h = blockIdx.y, nt = blockIdx.x % ntile, bc = blockIdx.x / ntile;
+  const int c = bc % nc, b = bc / nc, n0 = nt * NT, s0 = c * L;
+  const int tid = threadIdx.x, tr = tid / (NT / 4), tc = tid % (NT / 4);
+  const long long row = ((long long)b * H + h) * nc + c;
+  const float* cr = cum + row * L;
+  const int jn = min(L, S - s0);  // real rows of this chunk
+  const float cum_end = cr[L - 1];
+  for (int j = tid; j < jn; j += 128)
+    w_s[j] = expf(cum_end - cr[j]) * dt[((long long)b * S + s0 + j) * H + h];
+  const T* xb = x + (((long long)b * S + s0) * H + h) * P;  // row j: + j H P
+  const T* bb = Bm + ((long long)b * S + s0) * N + n0;      // row j: + j N
+  float acc[4][4] = {};
+  for (int j0 = 0; j0 < jn; j0 += JT) {
+    __syncthreads();  // last tile consumed (and w_s written)
+#pragma unroll 4
+    for (int e = tid; e < JT * P; e += 128) {
+      const int j = e / P, jj = j0 + j;
+      xs[j][e % P] = jj < jn ? to_f(xb[(long long)jj * H * P + e % P]) * w_s[jj]
+                             : 0.f;
+    }
+#pragma unroll 4
+    for (int e = tid; e < JT * NT; e += 128) {
+      const int j = e / NT, k = e % NT, jj = j0 + j;
+      bs[j][k] = (jj < jn && n0 + k < N) ? to_f(bb[(long long)jj * N + k]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int j = 0; j < JT; ++j)
+      mac4x4(acc, f4(&xs[j][4 * tr]), f4(&bs[j][4 * tc]));
+  }
+  const int n = n0 + 4 * tc;
+  if (n < N) {
+    float* out = st + row * P * N;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      *reinterpret_cast<float4*>(out + (long long)(4 * tr + r) * N + n) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 4. carry across chunks, in place: st[c] becomes the state entering c
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(128)
+ssd_carry_kernel(float* __restrict__ st, const float* __restrict__ cum,
+                 const float* __restrict__ init_state,
+                 float* __restrict__ final_state, int PN, int nc, int L) {
+  const int e = (blockIdx.x * 128 + threadIdx.x) * 4;
+  const long long bh = blockIdx.y;
+  if (e >= PN) return;
+  float4 carry = init_state
+                     ? *reinterpret_cast<const float4*>(init_state + bh * PN + e)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c = 0; c < nc; ++c) {
+    float4* slot = reinterpret_cast<float4*>(st + (bh * nc + c) * PN + e);
+    const float4 s = *slot;
+    *slot = carry;
+    const float d = expf(cum[(bh * nc + c) * L + L - 1]);
+    carry = make_float4(carry.x * d + s.x, carry.y * d + s.y,
+                        carry.z * d + s.z, carry.w * d + s.w);
+  }
+  *reinterpret_cast<float4*>(final_state + bh * PN + e) = carry;
+}
+
+// ---------------------------------------------------------------------------
+// 5. y for one (b, chunk, 64-row tile) x h
+// ---------------------------------------------------------------------------
+// Two reductions in tiles of JT: the inter term over n (C rows, the
+// entering state), then the intra term over the keys j <= i (weights from
+// CB, x rows).  The chunk's cum and dt are staged once.
+template <typename T, int P>
+__global__ void __launch_bounds__(4 * P)
+ssd_out_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+               const T* __restrict__ Cm, const float* __restrict__ cum,
+               const float* __restrict__ cb, const float* __restrict__ st,
+               T* __restrict__ y, int S, int H, int N, int L, int nc,
+               int nrt) {
+  constexpr int THREADS = 4 * P;  // 16 x (P / 4) threads of 4 x 4
+  __shared__ __align__(16) float sa[JT][T64 + PAD], sb[JT][P + PAD];
+  __shared__ float cum_s[256], dt_s[256];
+  const int h = blockIdx.y, rt = blockIdx.x % nrt, bc = blockIdx.x / nrt;
+  const int c = bc % nc, b = bc / nc, s0 = c * L, i0 = rt * T64;
+  const int jn = min(L, S - s0);  // real rows of this chunk
+  if (i0 >= jn) return;
+  const int in = min(T64, jn - i0);  // real rows of this tile
+  const int tid = threadIdx.x, tr = tid / (P / 4), tc = tid % (P / 4);
+  const long long row = ((long long)b * H + h) * nc + c;
+  const float* state = st + row * P * N;
+  const float* cbc = cb + (long long)bc * L * L + (long long)i0 * L;  // tile rows
+  const T* cm = Cm + ((long long)b * S + s0 + i0) * N;               // tile rows
+  const T* xb = x + (((long long)b * S + s0) * H + h) * P;           // + j H P
+  const int j_end = i0 + in;  // keys this tile's rows can see
+  for (int j = tid; j < j_end; j += THREADS) {
+    cum_s[j] = cum[row * L + j];
+    dt_s[j] = dt[((long long)b * S + s0 + j) * H + h];
+  }
+
+  // inter: C_i . state_in, over n in tiles of JT
+  float inter[4][4] = {}, intra[4][4] = {};
+  for (int n0 = 0; n0 < N; n0 += JT) {
+    __syncthreads();
+#pragma unroll 4
+    for (int e = tid; e < T64 * JT; e += THREADS) {
+      const int r = e / JT, k = e % JT;
+      sa[k][r] = (r < in && n0 + k < N) ? to_f(cm[(long long)r * N + n0 + k]) : 0.f;
+    }
+#pragma unroll 4
+    for (int e = tid; e < P * JT; e += THREADS) {
+      const int p = e / JT, k = e % JT;
+      sb[k][p] = n0 + k < N ? state[(long long)p * N + n0 + k] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int k = 0; k < JT; ++k)
+      mac4x4(inter, f4(&sa[k][4 * tr]), f4(&sb[k][4 * tc]));
+  }
+
+  // intra: sum over j <= i of CB_ij exp(cum_i - cum_j) dt_j x_j
+  for (int j0 = 0; j0 < j_end; j0 += JT) {
+    __syncthreads();
+#pragma unroll 4
+    for (int e = tid; e < T64 * JT; e += THREADS) {
+      const int r = e / JT, j = e % JT, jj = j0 + j;
+      // the exponential only for j <= i (above it overflows; inf * 0 = NaN)
+      sa[j][r] = (r < in && jj <= i0 + r)
+                     ? cbc[(long long)r * L + jj] * expf(cum_s[i0 + r] - cum_s[jj]) *
+                           dt_s[jj]
+                     : 0.f;
+    }
+#pragma unroll 4
+    for (int e = tid; e < JT * P; e += THREADS) {
+      const int j = e / P, jj = j0 + j;
+      sb[j][e % P] = jj < jn ? to_f(xb[(long long)jj * H * P + e % P]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int j = 0; j < JT; ++j)
+      mac4x4(intra, f4(&sa[j][4 * tr]), f4(&sb[j][4 * tc]));
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = 4 * tr + r;
+    if (i >= in) continue;
+    const float ei = expf(cum_s[i0 + i]);
+    T* yo = y + (((long long)b * S + s0 + i0 + i) * H + h) * P + 4 * tc;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) yo[q] = from_f<T>(intra[r][q] + ei * inter[r][q]);
+  }
 }
 
 template <typename T, int P>
 cudaError_t launch(const void* x, const void* dt, const void* A,
                    const void* Bm, const void* Cm, const void* init_state,
-                   void* y, void* final_state, int batch, int S, int H,
-                   int N, int L, cudaStream_t stream) {
-  const size_t bytes = smem_floats(L, P, N) * sizeof(float);
-  auto kernel = ssd_fwd_kernel<T, P>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(H, batch), THREADS, bytes, stream>>>(
+                   void* y, void* final_state, float* cum, float* cb,
+                   float* st, int batch, int S, int H, int N, int L,
+                   cudaStream_t stream) {
+  const int nc = (S + L - 1) / L, t64 = (L + T64 - 1) / T64;
+  const int rows = batch * H * nc;
+  ssd_cumsum_kernel<<<(rows + 3) / 4, 128, 0, stream>>>(
+      static_cast<const float*>(dt), static_cast<const float*>(A), cum, rows,
+      S, H, nc, L);
+  const int ntri = t64 * (t64 + 1) / 2;
+  ssd_cb_kernel<T><<<batch * nc * ntri, CB_THREADS, 0, stream>>>(
+      static_cast<const T*>(Bm), static_cast<const T*>(Cm), cb, S, N, L, nc,
+      ntri);
+  constexpr int NT = 2048 / P;
+  const int ntile = (N + NT - 1) / NT;
+  ssd_states_kernel<T, P><<<dim3(batch * nc * ntile, H), 128, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), static_cast<const float*>(init_state),
-      static_cast<T*>(y), static_cast<float*>(final_state), S, H, N, L);
+      static_cast<const T*>(Bm), cum, st, S, H, N, L, nc, ntile);
+  const int PN = P * N;
+  ssd_carry_kernel<<<dim3((PN / 4 + 127) / 128, batch * H), 128, 0, stream>>>(
+      st, cum, static_cast<const float*>(init_state),
+      static_cast<float*>(final_state), PN, nc, L);
+  ssd_out_kernel<T, P><<<dim3(batch * nc * t64, H), 4 * P, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(dt),
+      static_cast<const T*>(Cm), cum, cb, st, static_cast<T*>(y), S, H, N, L,
+      nc, t64);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_p(int P, const void* x, const void* dt, const void* A,
                        const void* Bm, const void* Cm, const void* init_state,
-                       void* y, void* final_state, int batch, int S, int H,
-                       int N, int L, cudaStream_t stream) {
+                       void* y, void* final_state, float* cum, float* cb,
+                       float* st, int batch, int S, int H, int N, int L,
+                       cudaStream_t stream) {
   switch (P) {
-    case 16: return launch<T, 16>(x, dt, A, Bm, Cm, init_state, y, final_state, batch, S, H, N, L, stream);
-    case 32: return launch<T, 32>(x, dt, A, Bm, Cm, init_state, y, final_state, batch, S, H, N, L, stream);
-    case 64: return launch<T, 64>(x, dt, A, Bm, Cm, init_state, y, final_state, batch, S, H, N, L, stream);
+    case 16: return launch<T, 16>(x, dt, A, Bm, Cm, init_state, y, final_state, cum, cb, st, batch, S, H, N, L, stream);
+    case 32: return launch<T, 32>(x, dt, A, Bm, Cm, init_state, y, final_state, cum, cb, st, batch, S, H, N, L, stream);
+    case 64: return launch<T, 64>(x, dt, A, Bm, Cm, init_state, y, final_state, cum, cb, st, batch, S, H, N, L, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Bytes of dynamic shared memory one block needs (the wrapper checks them
-// against the card's per-block limit before launching).
-extern "C" long long ssd_scan_smem_bytes(int P, int N, int L) {
-  return (long long)(smem_floats(L, P, N) * sizeof(float));
-}
-
 // dtype: 0 float32, 1 bfloat16 (x, B, C and y alike; dt, A and the states
-// are float32).  init_state may be null (zeros).  Returns the launch's CUDA
-// error code (0 on success); the wrapper checks every argument first.
+// are float32).  init_state may be null (zeros).  Scratch, float32, from
+// the wrapper: cum [batch, H, nc, L], cb [batch, nc, L, L] and st [batch,
+// H, nc, P, N], nc = ceil(S / L).  Returns the first launch error's CUDA
+// code (0 on success); the wrapper checks every argument first.
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A,
                             const void* Bm, const void* Cm,
                             const void* init_state, void* y,
-                            void* final_state, int batch, int S, int H,
-                            int P, int N, int L, int dtype, void* stream) {
-  if (batch < 1 || S < 1 || H < 1 || L < 1 || L > THREADS || N < 4 ||
-      N % 4 != 0 || P * N > THREADS * ST_MAX)
+                            void* final_state, void* cum, void* cb, void* st,
+                            int batch, int S, int H, int P, int N, int L,
+                            int dtype, void* stream) {
+  if (batch < 1 || S < 1 || H < 1 || L < 1 || L > 256 || N < 4 ||
+      N % 4 != 0 || P * N > 8192)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float *c = static_cast<float*>(cum), *w = static_cast<float*>(cb),
+        *t = static_cast<float*>(st);
   if (dtype == 0)
-    return dispatch_p<float>(P, x, dt, A, Bm, Cm, init_state, y, final_state, batch, S, H, N, L, s);
+    return dispatch_p<float>(P, x, dt, A, Bm, Cm, init_state, y, final_state, c, w, t, batch, S, H, N, L, s);
   if (dtype == 1)
-    return dispatch_p<__nv_bfloat16>(P, x, dt, A, Bm, Cm, init_state, y, final_state, batch, S, H, N, L, s);
+    return dispatch_p<__nv_bfloat16>(P, x, dt, A, Bm, Cm, init_state, y, final_state, c, w, t, batch, S, H, N, L, s);
   return cudaErrorInvalidValue;
 }

@@ -7,16 +7,18 @@ zeros and cut from y, where the Pallas wrapper asserts ``s % chunk ==
 0``) and an optional entering state (zeros when absent).
 
 Dispatch is by the device of the tensors: a CUDA tensor launches the
-hand-written kernel (``csrc/ssd.cu``, built at first use by ``build.py``)
-or raises on a type, shape or layout the kernel does not take; a CPU
-tensor takes the plain version (``ref.py``).  NumPy inputs are placed on
-``device`` first, which defaults to ``cuda`` (and raises without a GPU).
-The kernel takes x, B and C in one type (float32 or bfloat16), dt, A and
-the state in float32, head dims p in {16, 32, 64}, n a multiple of 4
-with p * n <= 8192, and chunk <= 256 (one thread per chunk row), within
-the card's shared memory per block.
+hand-written kernels (``csrc/ssd.cu``, built at first use by ``build.py``:
+five stages — cumsum, C.B^T, chunk states, carry, output — on the
+current stream, scratch allocated here) or raises on a type, shape or
+layout they do not take; a CPU tensor takes the plain version
+(``ref.py``).  NumPy inputs are placed on ``device`` first, which
+defaults to ``cuda`` (and raises without a GPU).  The kernels take x, B
+and C in one type (float32 or bfloat16), dt, A and the state in float32,
+head dims p in {16, 32, 64}, n a multiple of 4 with p * n <= 8192, and
+chunk <= 256.
 
-``LAUNCHES`` counts kernel launches (the plain path counts nothing).
+``LAUNCHES`` counts calls that went to the card, one per ``ssd_scan``
+(the plain path counts nothing).
 """
 from __future__ import annotations
 
@@ -31,8 +33,6 @@ LAUNCHES = {"ssd_scan": 0}
 HEAD_DIMS = (16, 32, 64)
 MAX_CHUNK = 256
 MAX_STATE = 8192
-#: dynamic shared memory one block may use on Hopper (227 KB)
-MAX_SMEM = 232_448
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 F32 = torch.float32
 
@@ -83,8 +83,10 @@ def _kernel_checks(x, dt, A, B, C, chunk, initial_state) -> None:
     if not all(t.is_contiguous() for t in [x, B, C] + floats):
         raise ValueError("x, dt, A, B, C and initial_state must be "
                          "contiguous")
-    if h > 65535 or b > 65535 or b * s * h * p >= 1 << 62:
+    if h > 65535 or b * h > 65535 or b * s * h * p >= 1 << 62:
         raise ValueError(f"shape {tuple(x.shape)} exceeds the launch grid")
+    if initial_state is not None and initial_state.data_ptr() % 16:
+        raise ValueError("initial_state must start on a 16-byte boundary")
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, initial_state=None,
@@ -110,20 +112,22 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, initial_state=None,
     n = B.shape[-1]
     from repro_torch.kernels.ssd.build import load
     lib = load()
-    smem = lib.ssd_scan_smem_bytes(p, n, chunk)
-    if smem > MAX_SMEM:
-        raise ValueError(f"p={p}, n={n}, chunk={chunk} need {smem} bytes of "
-                         f"shared memory per block (> {MAX_SMEM})")
+    nc = -(-s // chunk)
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=F32, device=x.device)
+    # scratch: per-chunk cumsums, C.B^T per chunk, chunk states (then the
+    # states entering each chunk, written over them by the carry)
+    cum = torch.empty((b, h, nc, chunk), dtype=F32, device=x.device)
+    cb = torch.empty((b, nc, chunk, chunk), dtype=F32, device=x.device)
+    st = torch.empty((b, h, nc, p, n), dtype=F32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.ssd_scan_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(),
             None if initial_state is None else initial_state.data_ptr(),
-            y.data_ptr(), state.data_ptr(), b, s, h, p, n, chunk,
-            DTYPES[x.dtype], stream)
+            y.data_ptr(), state.data_ptr(), cum.data_ptr(), cb.data_ptr(),
+            st.data_ptr(), b, s, h, p, n, chunk, DTYPES[x.dtype], stream)
     if code != 0:
         raise RuntimeError(f"SSD kernel launch failed: CUDA error {code}")
     LAUNCHES["ssd_scan"] += 1

@@ -1,8 +1,8 @@
 """Plain PyTorch version of the Mamba2 SSD chunked-scan kernel.
 
-It computes what ``csrc/ssd.cu`` computes, in the same order: the chunks
-one after another, an f32 state [b, h, p, n] carried across them, and per
-chunk (``src/repro/kernels/ssd/ssd.py:44-62``)
+It computes what ``csrc/ssd.cu`` computes, as the TPU kernel orders it:
+the chunks one after another, an f32 state [b, h, p, n] carried across
+them, and per chunk (``src/repro/kernels/ssd/ssd.py:44-62``)
 
   cum      = inclusive cumsum of dt * A over the chunk
   y[i]     = sum_{j<=i} exp(cum_i - cum_j) dt_j (C_i . B_j) x_j
@@ -13,7 +13,10 @@ with ``models.ssm.ssd_chunked``'s contract: a sequence that is not a
 multiple of ``chunk`` is zero-padded at the tail (dt = 0 there leaves the
 state unchanged) and y is cut back; ``initial_state`` defaults to zeros.
 ``exp(cum_i - cum_j)`` is taken only for j <= i (the upper triangle gets
-exp(-inf) = 0), so its overflow never meets a 0/1 mask.
+exp(-inf) = 0), so its overflow never meets a 0/1 mask.  The CUDA
+kernels compute the same terms chunk-parallel (every chunk's C.B^T and
+summary state at once, then the carry), so the two differ only in the
+order of float32 sums.
 """
 from __future__ import annotations
 
