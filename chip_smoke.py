@@ -29,7 +29,8 @@ Phases, each failing the run on any mismatch:
      counts read around it), its results equal to the same run on the
      CPU field for field; phase times are the engine's own
      (``RunReport``); then the kernel's and plain version's times on the
-     main path's two table builds (fna, and fno with ``allowed``);
+     main path's two table builds (fna, and fno with ``allowed``), each
+     beside its own bound;
   4. the router tier, its launch counts read around the main drive:
      (c1) the paper shape — 8 indicators of 10,000 keys at bpe 14
      (m = 140,000 bits, k = 10) probed with all 1M gradle requests;
@@ -42,8 +43,10 @@ Phases, each failing the run on any mismatch:
      negative; (c3) slice (b)'s own indication patterns and end-of-run
      estimates decided on the card and on the CPU at float32 and float64,
      differing rows only inside the stated dead-bands; the kernel's and
-     plain version's times at (c1) and (c2); and the ``--replay`` serving
-     entry point once per regime;
+     plain version's times at (c1) and (c2), each beside its own bound, and
+     (c2)'s sector rates at three spans beside a PyTorch gather of as many
+     random bytes; and the ``--replay`` serving entry point once per
+     regime;
   5. golden on the card: ``exhaustive_small`` (its fna_cal speculation
      tables through the kernel too) and ``fig4_gradle`` equal to
      ``tests/golden/*.json`` bit for bit;
@@ -71,7 +74,9 @@ float32 on the card is float32 as on the CPU; the model path calls no
 cuDNN operator (its causal convolution is a shifted sum).
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
-JSON object describing the kernels of the main path, and
+JSON object describing the kernels of the main path (a kernel launched
+more than once on its path also lists each launch's time and bound under
+``per_launch``; its ``ms`` and ``bound_ms`` are their sums), and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -86,8 +91,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-#: H100 SXM peaks (NVIDIA data sheet): fp64 without tensor cores, HBM3
-PEAK_FP64_FLOPS = 34e12
+#: H100 SXM peak (NVIDIA data sheet): HBM3
 PEAK_BYTES_PER_S = 3.35e12
 #: dense bf16 on the tensor cores; float32 outside them
 PEAK_BF16_FLOPS = 989e12
@@ -106,6 +110,12 @@ DEAD_BAND_F32 = 1e-5
 #: H100 SXM integer issue: 132 SMs x 64 INT32 lanes x 1.98 GHz boost —
 #: derived from the SM layout; the data sheet gives no INT32 rate
 PEAK_INT32_OPS = 132 * 64 * 1.98e9
+#: H100 SXM fp64 instructions without an FMA: 132 SMs x 64 fp64 lanes x
+#: 1.98 GHz — derived from the SM layout.  The data sheet's 34 TFLOP/s
+#: counts an FMA as two flops; the subset-DP's bit-exact contract forbids
+#: the FMA (``--fmad=false``, ``__dmul_rn``/``__dadd_rn``), so each multiply
+#: and each add is one instruction at this rate
+PEAK_FP64_UNFUSED_OPS = 132 * 64 * 1.98e9
 L2_BYTES = 50e6
 #: the router's indicator budget (bits per element) and k = optimal_k(14)
 ROUTER_BPE = 14.0
@@ -404,17 +414,18 @@ def _popcount(x, n: int):
 
 
 def argmin_work(rhos, allowed):
-    """(operations, bytes) that ``subset_argmin`` needs on these inputs:
-    per allowed mask one multiply (a subset's product is its prefix's
-    times one rho, mask 0 needs none), one add and one compare — only the
+    """(fp64 operations, bytes) that ``subset_argmin`` needs on these
+    inputs: one multiply per non-empty allowed mask (a subset's product is
+    its prefix's times one rho) and one add per allowed mask — only the
     subsets of ``allowed[b]`` where it is given; every input read once
     (rhos, the 2^n cost vector, M, allowed) and the [B] output written
-    once."""
+    once.  The compare is not counted: every value is >= 0, so it can run
+    on the integer pipe beside the fp64 one."""
     b, n = rhos.shape
     k = 1 << n
     masks = b * k if allowed is None else \
         int((1 << _popcount(allowed, n)).sum())
-    ops = 3 * masks - b
+    ops = 2 * masks - b
     nbytes = rhos.numel() * 8 + k * 8 + 8 + b * 8 + \
         (0 if allowed is None else b * 8)
     return ops, nbytes
@@ -428,7 +439,7 @@ def prod_work(rhos):
     return b * (k - 1), rhos.numel() * 8 + 8 + b * k * 8
 
 
-def bound(ops: int, nbytes: int, peak_ops: float = PEAK_FP64_FLOPS):
+def bound(ops: int, nbytes: int, peak_ops: float):
     """(least milliseconds, what bounds it) for this much work at
     ``peak_ops`` operations per second."""
     t_ops = ops / peak_ops * 1e3
@@ -436,66 +447,83 @@ def bound(ops: int, nbytes: int, peak_ops: float = PEAK_FP64_FLOPS):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def _times_line(name: str, ms: float, plain_ms: float, bound_ms: float,
+                by: str, detail: str, card: str) -> None:
+    print(f"[times] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({by}; {detail}), {bound_ms / ms:.1%} of "
+          f"the bound reached ({card})")
+
+
+def _summed(name: str, launches: list, card: str) -> dict:
+    """The record's times and bound over a path's launches: the sum of each
+    launch's own time and of each launch's own bound; ``bound_by`` is the
+    larger bound's, ``per_launch`` keeps each one."""
+    total = {key: sum(x[key] for x in launches)
+             for key in ("ms", "plain_ms", "bound_ms")}
+    total["bound_by"] = max(launches, key=lambda x: x["bound_ms"])["bound_by"]
+    _times_line(name, total["ms"], total["plain_ms"], total["bound_ms"],
+                total["bound_by"], "the sum of the launches' own bounds",
+                card)
+    total["per_launch"] = launches
+    return total
+
+
 def phase_kernel_times(st, cfg, launches, card: str):
-    """The kernel against its plain version on (b)'s main-path inputs: the
-    [V * 256, 8] rho rows of the fna table (no ``allowed``) and of the
-    fno table (CS_FNO ``allowed`` = each row's pattern), the two launches
-    the main path makes.  The record's times and bound are for the two
-    launches together."""
+    """The kernel against its plain version on (b)'s main-path inputs, the
+    rows of the two launches the main path makes, as it lays them out
+    (``core.batched._exhaustive_rows``): the fna table's [V * 256, 8] rho
+    rows by version, the fno table's by pattern with CS_FNO ``allowed`` =
+    each row's pattern; M is the device tensor the main path passes.  Each
+    launch is timed beside its own bound; the record holds their sums."""
     import torch
-    from repro_torch.core.batched import _pattern_rhos
+    from repro_torch.core.batched import _exhaustive_rows
     from repro_torch.kernels.subsetdp import ops, ref
     d = st.device_arrays()
-    rhos = _pattern_rhos(d["pi"], d["nu"]).contiguous()
-    b, n = rhos.shape
-    dev = rhos.device
     costs = list(cfg.costs)
-    M = cfg.miss_penalty
-    cost = ops.subset_costs(costs, n, dev)
-    mp = torch.as_tensor([M], dtype=torch.float64, device=dev)
     before = dict(ops.LAUNCHES)
-    total = dict(ms=0.0, plain_ms=0.0, ops=0, nbytes=0, err=0)
-    for policy, allowed in (("fna", None),
-                            ("fno", torch.arange(b, device=dev) % (1 << n))):
-        kern = ops.subset_argmin(costs, rhos, M, allowed=allowed)
+    per_launch, err = [], 0
+    for policy in ("fna", "fno"):
+        rhos, allowed = _exhaustive_rows(d["pi"], d["nu"], policy == "fno")
+        b, n = rhos.shape
+        dev = rhos.device
+        cost = ops.subset_costs(costs, n, dev)
+        mp = torch.as_tensor([cfg.miss_penalty], dtype=torch.float64,
+                             device=dev)
+        kern = ops.subset_argmin(costs, rhos, mp, allowed=allowed)
         plain = ref.subset_argmin_ref(cost, rhos, mp, allowed)
-        err = int((kern - plain).abs().max())
-        check(err == 0, f"subset_argmin != plain on (b)'s {policy} table")
-        ms = device_ms(lambda: ops.subset_argmin(costs, rhos, M,
-                                               allowed=allowed), 5)
+        e = int((kern - plain).abs().max())
+        err = max(err, e)
+        check(e == 0, f"subset_argmin != plain on (b)'s {policy} table")
+        ms = device_ms(lambda: ops.subset_argmin(costs, rhos, mp,
+                                               allowed=allowed), 20)
         plain_ms = device_ms(lambda: ref.subset_argmin_ref(cost, rhos, mp,
                                                          allowed), 2)
         n_ops, nbytes = argmin_work(rhos, allowed)
-        bound_ms, by = bound(n_ops, nbytes)
-        print(f"[times] subset_argmin {policy} table B={b} n={n}: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
-              f"ms ({by}; {n_ops} fp64 operations, {nbytes} bytes) ({card})")
-        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("ops", n_ops),
-                         ("nbytes", nbytes)):
-            total[key] += val
-        total["err"] = max(total["err"], err)
-    bound_ms, by = bound(total["ops"], total["nbytes"])
-    print(f"[times] subset_argmin, both launches: kernel {total['ms']:.4f} "
-          f"ms, plain {total['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({by}) ({card})")
+        bound_ms, by = bound(n_ops, nbytes, PEAK_FP64_UNFUSED_OPS)
+        _times_line(f"subset_argmin {policy} table B={b} n={n}", ms,
+                    plain_ms, bound_ms, by, f"{n_ops} fp64 operations, "
+                    f"{nbytes} bytes", card)
+        per_launch.append({"launch": policy, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": by})
+    total = _summed("subset_argmin, both launches", per_launch, card)
     # subset_prod (validation counterpart, off the main path) at a slice
-    # of the same rows: its [rows, 2^n] output is what the fused kernel
+    # of the fna rows: its [rows, 2^n] output is what the fused kernel
     # keeps out of device memory
-    sub = rhos[: 1 << 18]
-    prod_ms = device_ms(lambda: ops.subset_prod(sub, M), 5)
+    sub = _exhaustive_rows(d["pi"], d["nu"], False)[0][: 1 << 18]
+    prod_ms = device_ms(lambda: ops.subset_prod(sub, mp), 10)
     prod_plain_ms = device_ms(lambda: ref.subset_prod_ref(sub, mp), 2)
-    p_bound, p_by = bound(*prod_work(sub))
-    print(f"[times] subset_prod B={sub.shape[0]} n={n}: kernel "
-          f"{prod_ms:.4f} ms, plain {prod_plain_ms:.4f} ms, bound "
-          f"{p_bound:.4f} ms ({p_by}) ({card})")
+    p_ops, p_bytes = prod_work(sub)
+    p_bound, p_by = bound(p_ops, p_bytes, PEAK_FP64_UNFUSED_OPS)
+    _times_line(f"subset_prod B={sub.shape[0]} n={n}", prod_ms,
+                prod_plain_ms, p_bound, p_by, f"{p_ops} fp64 operations, "
+                f"{p_bytes} bytes", card)
     check(dict(ops.LAUNCHES) != before, "timing runs launched no kernel")
     return {
         "name": "subsetdp.subset_argmin", "route": "cuda",
         "source": "src/repro_torch/kernels/subsetdp/csrc/subsetdp.cu",
         "replaces": "src/repro/kernels/subsetdp/subsetdp.py:41",
-        "launches": launches["subset_argmin"], "max_abs_err": total["err"],
-        "ms": total["ms"], "plain_ms": total["plain_ms"],
-        "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+        "launches": launches["subset_argmin"], "max_abs_err": err,
+        "library_ms": None, **total,
     }
 
 
@@ -693,33 +721,59 @@ def phase_router(dev, st, cfg, card: str):
           f"{int((ind2[member] == 0).sum())} false negatives")
     _decisions_vs_cpu(st, cfg, dev)
 
-    # times at (c1) and (c2), beside the bound of this run's inputs
-    total = dict(ms=0.0, plain_ms=0.0, ops=0, nbytes=0)
+    # times at (c1) and (c2), each beside the bound of its own inputs
+    limit = bloom.ops.stage_limit(dev)
+    per_launch = []
     for tag, bits, keys in cases:
-        ms = device_ms(lambda: bloom.bloom_probe(bits, keys, k=k), 10)
+        ms = device_ms(lambda: bloom.bloom_probe(bits, keys, k=k), 20)
         plain_ms = device_ms(lambda: ref.bloom_probe_ref(bits, keys, k), 2)
         n_ops, nbytes = bloom_work(bits, keys, k)
         bound_ms, by = bound(n_ops, nbytes, PEAK_INT32_OPS)
-        print(f"[times] bloom_probe {tag} B={keys.shape[0]} "
-              f"n={bits.shape[0]} m_bytes={bits.shape[1]}: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
-              f"ms ({by}; {n_ops} int32 operations, {nbytes} bytes) "
-              f"({card})")
-        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("ops", n_ops),
-                         ("nbytes", nbytes)):
-            total[key] += val
-    bound_ms, by = bound(total["ops"], total["nbytes"], PEAK_INT32_OPS)
-    print(f"[times] bloom_probe, the three launches: kernel "
-          f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({by}) ({card})")
+        where = "shared memory" if bits.numel() <= limit else "device memory"
+        _times_line(f"bloom_probe {tag} B={keys.shape[0]} n={bits.shape[0]} "
+                    f"m_bytes={bits.shape[1]} (bitmaps in {where})", ms,
+                    plain_ms, bound_ms, by, f"{n_ops} int32 operations, "
+                    f"{nbytes} bytes", card)
+        per_launch.append({"launch": tag, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": by})
+    total = _summed("bloom_probe, the three launches", per_launch, card)
+    _fleet_sector_rates(stale, keys2, k, card)
     return {
         "name": "bloom.bloom_probe", "route": "cuda",
         "source": "src/repro_torch/kernels/bloom/csrc/bloom.cu",
         "replaces": "src/repro/kernels/bloom/bloom.py:30",
         "launches": launches["bloom_probe"], "max_abs_err": err,
-        "ms": total["ms"], "plain_ms": total["plain_ms"],
-        "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+        "library_ms": None, **total,
     }
+
+
+def _fleet_sector_rates(stale, keys, k: int, card: str) -> None:
+    """What bounds (c2): the kernel's sector rates on the first 4, 8 and
+    16 stale bitmaps (spans of 280 MB, 560 MB and 1.12 GB, all beyond the
+    L2), beside the card's random-byte rate over the same spans — one
+    PyTorch gather (``flat[idx]``) of as many uniformly random bytes as the
+    kernel's needed probes, every load independent.  ``distinct`` counts
+    each needed 32-byte sector once (``bloom_work``'s bytes); ``probe``
+    counts one sector per needed probe (what the kernel loads when no
+    sector stays in L2 between two keys)."""
+    import torch
+    from repro_torch.kernels import bloom
+    g = torch.Generator(stale.device).manual_seed(0)
+    for n in (4, 8, 16):
+        bits = stale[:n]
+        probes, sectors = _probe_needs(bits, keys, k)
+        ms = device_ms(lambda: bloom.bloom_probe(bits, keys, k=k), 10)
+        flat = bits.reshape(-1)
+        idx = torch.randint(0, flat.numel(), (probes,), device=stale.device,
+                            generator=g)
+        gather_ms = device_ms(lambda: flat[idx], 10)
+        print(f"[times] bloom_probe (c2) first {n} stale bitmaps "
+              f"({bits.numel()} bytes): kernel {ms:.4f} ms, {probes} needed "
+              f"probes, {sectors} distinct sectors: distinct "
+              f"{sectors * 32 / ms / 1e9:.3f} TB/s, probe "
+              f"{probes * 32 / ms / 1e9:.3f} TB/s; gather of {probes} random "
+              f"bytes over the same span {gather_ms:.4f} ms, "
+              f"{probes * 32 / gather_ms / 1e9:.3f} TB/s of sectors ({card})")
 
 
 def phase_serve() -> None:

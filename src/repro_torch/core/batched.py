@@ -398,22 +398,44 @@ def exhaustive_tables(costs, pi, nu, miss_penalty, *, fno: bool = False,
                               cells=1).reshape(pi.shape[0], -1)
 
 
+def _exhaustive_rows(pi: torch.Tensor, nu: torch.Tensor, fno: bool,
+                     cells: int = 1):
+    """(rhos, allowed): the rows ``_exhaustive_argmin`` hands to
+    ``subset_argmin``, repeated once per cell.  Without ``fno`` they run
+    (version, pattern) and ``allowed`` is None; with it they run (pattern,
+    version), each row allowed its own pattern's bits, so that neighbouring
+    rows share their allowed set and a warp of the kernel walks only its
+    subsets (by pattern, the kernel would walk the union of 32 patterns)."""
+    v, n = pi.shape
+    k = 1 << n
+    allowed = None
+    if fno:
+        bits = _pattern_bits(n, pi.device)
+        rhos = torch.where(bits[:, None, :] > 0, pi[None, :, :],
+                           nu[None, :, :]).reshape(k * v, n)
+        allowed = torch.arange(k, dtype=I64,
+                               device=pi.device).repeat_interleave(v)
+    else:
+        rhos = _pattern_rhos(pi, nu)
+    if cells > 1:
+        rhos = rhos.repeat(cells, 1)
+        allowed = None if allowed is None else allowed.repeat(cells)
+    return rhos, allowed
+
+
 def _exhaustive_argmin(costs, pi: torch.Tensor, nu: torch.Tensor,
                        mp: torch.Tensor, fno: bool, cells: int
                        ) -> torch.Tensor:
-    """[cells * V * 2^n] subset bitmasks: the (version x pattern) rho rows
-    repeated once per cell, each row under ``mp`` (scalar, or one penalty
-    per row), through one ``subset_argmin`` call."""
+    """[cells * V * 2^n] subset bitmasks in (cell, version, pattern) order,
+    each row under ``mp`` (scalar, or one penalty per row, constant within
+    a cell), through one ``subset_argmin`` call."""
     from repro_torch.kernels.subsetdp.ops import subset_argmin
-    rhos = _pattern_rhos(pi, nu)
-    if cells > 1:
-        rhos = rhos.repeat(cells, 1)
-    k = 1 << pi.shape[1]
-    allowed = None
-    if fno:                        # pattern p's candidates are its own bits
-        allowed = torch.arange(rhos.shape[0], dtype=I64,
-                               device=rhos.device) % k
-    return subset_argmin(costs, rhos, mp, allowed=allowed)
+    rhos, allowed = _exhaustive_rows(pi, nu, fno, cells)
+    best = subset_argmin(costs, rhos, mp, allowed=allowed)
+    if fno:                        # (cell, pattern, version) -> by version
+        v, k = pi.shape[0], 1 << pi.shape[1]
+        best = best.reshape(cells, k, v).transpose(1, 2).reshape(-1)
+    return best
 
 
 def exhaustive_tables_cells(costs, pi, nu, penalties, *, fno: bool = False,

@@ -16,6 +16,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.bloom_probe.argtypes = [vp, ci, ll, vp, vp, ci, ll, ci, vp, vp]
     lib.bloom_probe.restype = ci
+    lib.bloom_stage_limit.argtypes = []
+    lib.bloom_stage_limit.restype = ll
 
 
 KERNEL = KernelLibrary(SOURCE, NVCC_FLAGS, _declare)

@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.device import I64, DeviceLike, tensor_device
+from repro_torch.device import I64, DeviceLike, resolve_device, tensor_device
 from repro_torch.kernels.bloom import ref
 
 #: kernel launches since the last ``reset_launches()``
@@ -65,10 +65,28 @@ def build_indicator(keys, m: int, k: int, seed: int = 0, *,
     return ref.pack_bits(bits01)
 
 
+def stage_limit(device: DeviceLike = None) -> int:
+    """Bytes of bitmaps (``n * m_bytes``, rounded up to 16) the kernel
+    stages in one block's shared memory on ``device`` (``cuda`` unless
+    asked): up to this size it probes shared memory, above it device
+    memory."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the shared-memory staging limit is a CUDA "
+                         f"device's, not {dev}'s")
+    from repro_torch.kernels.bloom.build import load
+    with torch.cuda.device(dev):
+        limit = int(load().bloom_stage_limit())
+    if limit < 0:
+        raise RuntimeError("Bloom-probe kernel: the device attribute query "
+                           "failed")
+    return limit
+
+
 def _check(code: int) -> None:
     if code != 0:
-        raise RuntimeError(f"Bloom-probe kernel launch failed: CUDA error "
-                           f"{code}")
+        raise RuntimeError(f"Bloom-probe kernel launch failed (attribute, "
+                           f"occupancy query or launch): CUDA error {code}")
 
 
 def bloom_probe(bits, keys, *, k: int, seeds=None,
@@ -107,8 +125,10 @@ def bloom_probe(bits, keys, *, k: int, seeds=None,
     out = torch.empty((b, n), dtype=torch.int8, device=dev)
     if b == 0 or n == 0:
         return out
-    words = torch.tensor([ref.seed_word(s) for s in seeds], dtype=I64,
-                         device=dev)
+    # pinned and copied without blocking: a pageable copy would wait for
+    # the stream to drain
+    words = torch.tensor([ref.seed_word(s) for s in seeds],
+                         dtype=I64).pin_memory().to(dev, non_blocking=True)
     from repro_torch.kernels.bloom.build import load
     lib = load()
     with torch.cuda.device(dev):

@@ -17,7 +17,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.subsetdp_prod.argtypes = [vp, vp, ll, vp, ll, ci, vp]
     lib.subsetdp_prod.restype = ci
-    lib.subsetdp_argmin.argtypes = [vp, vp, vp, ll, vp, vp, ll, ci, vp]
+    lib.subsetdp_argmin.argtypes = [vp, vp, vp, vp, ll, vp, vp, ll, ci, vp]
     lib.subsetdp_argmin.restype = ci
 
 

@@ -27,8 +27,11 @@ from repro_torch.kernels.subsetdp import ref
 
 #: kernel launches per entry point since the last ``reset_launches()``
 LAUNCHES = {"subset_prod": 0, "subset_argmin": 0}
-#: largest n the kernel takes (2^n lanes per row; rho row in shared memory)
+#: largest n the kernel takes (a warp per row above UNROLL_MAX_N)
 MAX_N = 16
+#: largest n the kernel walks a row per thread, fully unrolled (the main
+#: path's n = 8; ``kThreadMaxN`` in ``csrc/subsetdp.cu``)
+UNROLL_MAX_N = 8
 
 
 def reset_launches() -> None:
@@ -115,7 +118,9 @@ def subset_argmin(costs, rhos, miss_penalty, *, allowed=None,
     scalar or [B] per row."""
     rhos, mp = _inputs(rhos, miss_penalty, device)
     b, n = rhos.shape
-    cost = subset_costs(costs, n, rhos.device)
+    # built on the host: the kernel takes them as a launch parameter
+    # (n <= UNROLL_MAX_N); the same IEEE adds as on the card
+    cost = subset_costs(costs, n, "cpu")
     if allowed is not None:
         allowed = torch.as_tensor(allowed, dtype=I64,
                                   device=rhos.device).contiguous()
@@ -131,10 +136,13 @@ def subset_argmin(costs, rhos, miss_penalty, *, allowed=None,
         return out
     from repro_torch.kernels.subsetdp.build import load
     lib = load()
+    cost_dev = cost.pin_memory().to(rhos.device, non_blocking=True) \
+        if n > UNROLL_MAX_N else None
     with torch.cuda.device(rhos.device):
         stream = torch.cuda.current_stream(rhos.device).cuda_stream
         _check(lib.subsetdp_argmin(
-            cost.data_ptr(), rhos.data_ptr(), mp.data_ptr(),
+            cost.data_ptr(), None if cost_dev is None else cost_dev.data_ptr(),
+            rhos.data_ptr(), mp.data_ptr(),
             int(mp.numel() > 1),
             None if allowed is None else allowed.data_ptr(),
             out.data_ptr(), b, n, stream), "subsetdp_argmin")

@@ -31,9 +31,9 @@ def _tree(fn, tree):
 
 
 def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
-                    device: DeviceLike = "cpu") -> Dict[str, Any]:
+                    device: DeviceLike = None) -> Dict[str, Any]:
     """The JAX parameter tree (NumPy leaves) as the port's parameters on
-    ``device`` (the CPU unless asked)."""
+    ``device`` (``cuda`` unless asked; raises without a GPU)."""
     dev = resolve_device(device)
     get_model(cfg)                       # families the port cannot run raise
 

@@ -14,6 +14,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 
@@ -77,8 +78,11 @@ class Mamba2LM:
         }
 
     def init_cache(self, batch_size: int, max_len: int = 0,
-                   device="cpu") -> Params:
-        return {name: torch.zeros(shape, dtype=dt, device=device)
+                   device: DeviceLike = None) -> Params:
+        """Zeroed SSD states and conv histories on ``device`` (``cuda``
+        unless asked)."""
+        dev = resolve_device(device)
+        return {name: torch.zeros(shape, dtype=dt, device=dev)
                 for name, (shape, dt) in self.cache_spec(batch_size).items()}
 
     def prefill(self, params, batch) -> Tuple[torch.Tensor, Params]:

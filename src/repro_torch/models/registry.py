@@ -7,6 +7,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.mamba_lm import Mamba2LM
 from repro_torch.models.transformer import TransformerLM
 
@@ -27,11 +28,14 @@ def get_model(cfg: ModelConfig):
 def make_concrete_batch(cfg: ModelConfig, b: int, s: int,
                         gen: Optional[torch.Generator] = None, *,
                         with_labels: bool = True,
-                        device="cpu") -> Dict[str, torch.Tensor]:
-    """Random token batch [b, s] (and labels) drawn from ``gen``."""
+                        device: DeviceLike = None
+                        ) -> Dict[str, torch.Tensor]:
+    """Random token batch [b, s] (and labels) drawn from ``gen`` on the
+    CPU, placed on ``device`` (``cuda`` unless asked)."""
+    dev = resolve_device(device)
     get_model(cfg)                       # families the port cannot run raise
     out = {}
     for name in ("tokens", "labels") if with_labels else ("tokens",):
         out[name] = torch.randint(0, cfg.vocab, (b, s), generator=gen,
-                                  dtype=torch.int64).to(device)
+                                  dtype=torch.int64).to(dev)
     return out

@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 
@@ -134,9 +135,11 @@ class TransformerLM:
                 "len": ((), torch.int64)}
 
     def init_cache(self, batch_size: int, max_len: int,
-                   device="cpu") -> Params:
+                   device: DeviceLike = None) -> Params:
+        """Zeroed decode cache on ``device`` (``cuda`` unless asked)."""
+        dev = resolve_device(device)
         spec = self.cache_spec(batch_size, max_len)
-        cache = {name: torch.zeros(shape, dtype=dt, device=device)
+        cache = {name: torch.zeros(shape, dtype=dt, device=dev)
                  for name, (shape, dt) in spec.items() if name != "len"}
         cache["len"] = 0
         return cache

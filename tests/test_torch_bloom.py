@@ -168,3 +168,57 @@ def test_bloom_probe_rejects_bad_shapes():
         bloom_probe(bits, torch.arange(5), k=0)
     with pytest.raises(ValueError):
         build_indicator(torch.arange(5), 100, 3)
+
+
+# ---------------------------------------------------------------------------
+# A model of the CUDA kernel's index arithmetic (csrc/bloom.cu), in Python
+# integers: h mod m by Lemire's fastmod with the host's 64-bit magic, then
+# each next index by an add modulo m, corrected by 2^32 mod m whenever the
+# 32-bit sum h1 + i*h2 wraps.  It must equal ``hash_idx``'s
+# ``(h1 + i*h2) mod 2^32 mod m`` index for index.
+# ---------------------------------------------------------------------------
+
+M32, M64 = (1 << 32) - 1, (1 << 64) - 1
+
+
+def _fastmod(a, magic, m):
+    return ((magic * a) & M64) * m >> 64
+
+
+def _kernel_indices(key32, seed, k, m):
+    from repro_torch.kernels.bloom import ref
+    mix = lambda x: int(ref._mix32(torch.tensor([x]))[0])  # noqa: E731
+    magic = M64 // m + 1
+    wrap = (1 << 32) % m
+    h2 = mix(key32 ^ ref.H2_SALT) | 1
+    d = _fastmod(h2, magic, m)
+    e = d - wrap if d >= wrap else d + (m - wrap)
+    x = mix(key32 ^ ref.seed_word(seed))
+    y = _fastmod(x, magic, m)
+    out, wraps = [y], 0
+    for _ in range(1, k):
+        x = (x + h2) & M32
+        wrapped = x < h2
+        wraps += wrapped
+        a = e if wrapped else d
+        y = y - (m - a) if y >= m - a else y + a
+        assert 0 <= y < m
+        out.append(y)
+    return out, wraps
+
+
+@pytest.mark.parametrize("m_bytes", [1, 3, 1750, 17_500, 70 << 20])
+def test_kernel_modulo_model_matches_hash_idx(m_bytes):
+    """The wrap-corrected modulo equals ``hash_idx`` for every probe, on
+    keys whose ``h1 + i*h2`` wraps past 2^32 (each seed's keys wrap)."""
+    from repro_torch.kernels.bloom import ref
+    m, k = 8 * m_bytes, 10
+    keys = _int32_keys(np.random.default_rng(m_bytes), 64).astype(np.int64)
+    for seed in (0, 7, 2 ** 31 - 1):
+        want = ref.hash_idx(torch.as_tensor(keys), k, m, seed).numpy()
+        total_wraps = 0
+        for key, row in zip(keys, want):
+            got, wraps = _kernel_indices(int(key) & M32, seed, k, m)
+            total_wraps += wraps
+            assert got == row.tolist()
+        assert total_wraps > 0

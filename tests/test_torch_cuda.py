@@ -69,6 +69,59 @@ def test_kernel_matches_plain_on_card(card, n, b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", list(range(1, 17)))
+def test_kernel_every_n_matches_plain_on_card(card, n):
+    """Every unrolled row-per-thread instance (n <= 8) and the warp-per-row
+    path (n > 8): products byte for byte and the argmin exactly, with no
+    ``allowed``, ``allowed`` = 0 and all ones, random ``allowed``, the
+    table builders' pattern layout, scalar and per-row penalties, on a
+    ragged row count."""
+    rng = np.random.default_rng(800 + n)
+    b = 1003 if n <= 12 else 129
+    costs, rhos, M = _instance(rng, n, b)
+    r = torch.as_tensor(rhos, device=card)
+    mp = torch.as_tensor([M], dtype=torch.float64, device=card)
+    assert torch.equal(ops.subset_prod(r, M), ref.subset_prod_ref(r, mp))
+    cost = ops.subset_costs(costs, n, card)
+    full = (1 << n) - 1
+    for pen in (mp, torch.as_tensor(rng.uniform(1.5, 1000.0, b),
+                                    device=card)):
+        for allowed in (None, torch.zeros(b, dtype=torch.int64, device=card),
+                        torch.full((b,), full, device=card),
+                        torch.as_tensor(rng.integers(0, 1 << n, b),
+                                        device=card),
+                        torch.arange(b, device=card) % (1 << n)):
+            got = ops.subset_argmin(costs, r, pen, allowed=allowed)
+            want = ref.subset_argmin_ref(cost, r, pen, allowed)
+            assert torch.equal(got, want), (pen.numel(), allowed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 5, 8, 9, 12])
+def test_kernel_exact_ties_at_every_lane_on_card(card, n):
+    """Rows of exact ties (rho all 0, all 1, all 0.5, equal costs) at lane
+    positions 0, 1, 15, 16 and 31 of a warp, in the first and a later
+    warp: the lowest mask wins on the card as in the plain version."""
+    rng = np.random.default_rng(850 + n)
+    b = 96
+    costs = np.full(n, 2.0)
+    costs[n // 2:] = 1.0
+    rhos = rng.uniform(0.0, 1.0, (b, n))
+    for lane in (0, 1, 15, 16, 31):
+        for warp, val in ((0, 0.0), (1, 1.0), (2, 0.5)):
+            rhos[32 * warp + lane] = val
+    r = torch.as_tensor(rhos, device=card)
+    cost = ops.subset_costs(costs, n, card)
+    for M in (2.0, 4.0, 100.0):
+        mp = torch.as_tensor([M], dtype=torch.float64, device=card)
+        for allowed in (None, torch.as_tensor(rng.integers(0, 1 << n, b),
+                                              device=card)):
+            got = ops.subset_argmin(costs, r, mp, allowed=allowed)
+            assert torch.equal(got, ref.subset_argmin_ref(cost, r, mp,
+                                                          allowed))
+
+
+@pytest.mark.cuda
 def test_kernel_counts_launches(card):
     ops.reset_launches()
     r = torch.full((5, 3), 0.5, dtype=torch.float64, device=card)
@@ -140,6 +193,47 @@ def test_bloom_kernel_matches_plain_on_card(card, mbytes, k, n, n_keys):
     for j, m in enumerate(members):
         got = bloom.bloom_probe(bits, torch.as_tensor(m, device=card), k=k)
         assert got.shape == (m.size, n) and bool(got[:, j].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["at", "over"])
+def test_bloom_kernel_at_the_shared_memory_limit(card, side):
+    """Bitmaps that just fit one block's shared memory (staged there) and
+    one byte a bitmap more (probed in device memory): the kernel equals the
+    plain version on a ragged batch, and members answer 1."""
+    n, k = 4, 7
+    m_bytes = bloom.ops.stage_limit(card) // n + (side == "over")
+    rng = np.random.default_rng(5 + (side == "over"))
+    members = [torch.as_tensor(rng.integers(0, 2 ** 31, 30_000),
+                               device=card) for _ in range(n)]
+    bits = torch.stack([bloom.build_indicator(m, m_bytes * 8, k, seed=j)
+                        for j, m in enumerate(members)])
+    keys = torch.cat([torch.cat(members)[::7], torch.as_tensor(
+        rng.integers(-2 ** 31, 2 ** 31, 40_001), device=card)])
+    got = bloom.bloom_probe(bits, keys, k=k)
+    assert torch.equal(got, bloom.bloom_probe_ref(bits, keys, k))
+    for j, m in enumerate(members):
+        assert bool(bloom.bloom_probe(bits, m, k=k)[:, j].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,mbytes,b", [
+    (1, 1, 1), (3, 1, 1001), (5, 3, 777), (9, 1750, 4097), (13, 17_500, 33),
+    (17, 2, 65_537), (16, 17_500, 100_003)])
+def test_bloom_kernel_odd_shapes_on_card(card, n, mbytes, b):
+    """``m_bytes`` = 1, n not a multiple of 8 (byte stores) and a multiple
+    (8-byte stores), ragged batches; random bitmaps of every fill, k from 1
+    to 10, int32 and int64 keys."""
+    g = torch.Generator(card).manual_seed(n * 1000 + mbytes)
+    bits = torch.randint(0, 256, (n, mbytes), dtype=torch.uint8, device=card,
+                         generator=g)
+    bits[0] |= torch.randint(0, 256, (mbytes,), dtype=torch.uint8,
+                             device=card, generator=g)
+    keys = torch.randint(-2 ** 31, 2 ** 31, (b,), device=card, generator=g)
+    for k in (1, 3, 10):
+        for kk in (keys.to(torch.int32), keys):
+            got = bloom.bloom_probe(bits, kk, k=k)
+            assert torch.equal(got, bloom.bloom_probe_ref(bits, kk, k)), k
 
 
 @pytest.mark.cuda

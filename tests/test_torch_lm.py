@@ -58,7 +58,8 @@ def _setup(arch, **over):
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     jm = jax_model(jcfg)
     jparams = jm.init(jax.random.PRNGKey(0))
-    params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams))
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams),
+                             device="cpu")
     return cfg, get_model(cfg), params, jm, jparams
 
 
@@ -92,7 +93,8 @@ def test_params_from_jax_layout(arch):
         params, is_leaf=lambda x: isinstance(x, torch.Tensor)))
     assert n_port == sum(int(np.prod(a.shape)) for _, a in flat) == \
         cfg.param_count()
-    batch = make_concrete_batch(cfg, 2, 5, torch.Generator().manual_seed(0))
+    batch = make_concrete_batch(cfg, 2, 5, torch.Generator().manual_seed(0),
+                                device="cpu")
     assert set(batch) == {"tokens", "labels"}
     assert batch["tokens"].shape == (2, 5)
     assert int(batch["tokens"].max()) < cfg.vocab

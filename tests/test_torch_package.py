@@ -136,6 +136,47 @@ def test_lm_entry_points_raise_without_gpu(monkeypatch):
                      torch.empty((1, 4, 8), device="meta"), chunk=4)
 
 
+def _stack_layers(tree):
+    """The port's per-layer parameter list as the JAX layout's stacked
+    NumPy leaves (leading ``L`` dimension)."""
+    def stack(leaves):
+        if isinstance(leaves[0], dict):
+            return {k: stack([x[k] for x in leaves]) for k in leaves[0]}
+        return np.stack([x.numpy() for x in leaves])
+    out = {k: v.numpy() for k, v in tree.items() if k != "layers"}
+    out["layers"] = stack(tree["layers"])
+    return out
+
+
+@pytest.mark.parametrize("helper", ["params_from_jax", "transformer_cache",
+                                    "mamba_cache", "concrete_batch"])
+def test_model_helpers_default_to_cuda(monkeypatch, helper):
+    """The weight converter, both decode caches and the concrete batch run
+    on the card unless ``device="cpu"`` is passed, and raise without a
+    GPU (``resolve_device``'s message)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import (get_model, init_params,
+                                    make_concrete_batch, params_from_jax)
+    arch = "mamba2-370m" if helper == "mamba_cache" else "smollm-135m"
+    cfg = get_config(arch).reduced()
+    model = get_model(cfg)
+    call = {
+        "params_from_jax": lambda **kw: params_from_jax(
+            cfg, _stack_layers(init_params(cfg, device="cpu")), **kw),
+        "transformer_cache": lambda **kw: model.init_cache(2, 8, **kw),
+        "mamba_cache": lambda **kw: model.init_cache(2, **kw),
+        "concrete_batch": lambda **kw: make_concrete_batch(
+            cfg, 2, 5, torch.Generator().manual_seed(0), **kw),
+    }[helper]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    out = call(device="cpu")
+    leaves = [out["embed"]] if helper == "params_from_jax" else \
+        [v for v in out.values() if isinstance(v, torch.Tensor)]
+    assert leaves and all(t.device.type == "cpu" for t in leaves)
+
+
 def test_other_families_raise_not_implemented():
     from repro_torch.configs import get_config
     from repro_torch.models import get_model

@@ -109,3 +109,162 @@ def test_wrappers_reject_bad_shapes():
     with pytest.raises(ValueError):
         ops.subset_argmin([1.0, 1.0], np.zeros((3, 2)), 5.0,
                           allowed=np.zeros(2, np.int64), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# A NumPy model of the CUDA kernel's order of operations (csrc/subsetdp.cu):
+# one multiply per mask, each product taken from its parent's (the mask
+# without its highest bit), masks visited out of ascending order and
+# compared lexicographically on (value, mask).  n <= 8: a row per thread,
+# the low n - 3 bits walked depth first, each node owning a group of 2^3
+# top-bit masks compared strictly in ascending order (with ``allowed``: a
+# loop over the top patterns, one mask a node, each from the node's product
+# times the pattern's rho values); n > 8: a warp per row, lane l owning
+# the masks with low five bits l, its high bits walked depth first, the 32
+# lanes' bests reduced lexicographically.
+# ---------------------------------------------------------------------------
+
+def _lexi_better(v, m, bv, bm):
+    return (v < bv) | ((v == bv) & (m < bm))
+
+
+def _model_rows(cost, rhos, M, allowed):
+    b, n = rhos.shape
+    H = min(3, n)
+    L = n - H
+    if allowed is None:                   # groups of 2^H ascending masks
+        def group(M_, p):
+            q = {0: p}
+            gv = cost[M_] + p
+            gm = np.full(b, M_, np.int64)
+            for s in range(1, 1 << H):
+                hb = s.bit_length() - 1
+                q[s] = q[s ^ (1 << hb)] * rhos[:, L + hb]
+                phi = cost[M_ | (s << L)] + q[s]
+                take = phi < gv
+                gv = np.where(take, phi, gv)
+                gm = np.where(take, M_ | (s << L), gm)
+            return gv, gm
+
+        best_v, best_m = group(0, np.full(b, M, np.float64))
+
+        def walk(B, M_, p):
+            nonlocal best_v, best_m
+            if B >= L:
+                return
+            MC = M_ | (1 << B)
+            q = p * rhos[:, B]
+            gv, gm = group(MC, q)
+            take = _lexi_better(gv, gm, best_v, best_m)
+            best_v = np.where(take, gv, best_v)
+            best_m = np.where(take, gm, best_m)
+            walk(B + 1, MC, q)
+            walk(B + 1, M_, p)
+
+        walk(0, 0, np.full(b, M, np.float64))
+        return best_m
+    # with allowed: a loop over the top patterns s, one mask a low node
+    best_v = np.full(b, np.inf)
+    best_m = np.full(b, 1 << n, np.int64)
+    for s in range(1 << H):
+        ok_s = (s & ~((allowed >> L) & ((1 << H) - 1))) == 0
+
+        def visit(M_, p, ok):
+            nonlocal best_v, best_m
+            for j in range(H):
+                if (s >> j) & 1:
+                    p = p * rhos[:, L + j]
+            m = M_ | (s << L)
+            phi = cost[m] + p
+            take = ok & _lexi_better(phi, m, best_v, best_m)
+            best_v = np.where(take, phi, best_v)
+            best_m = np.where(take, m, best_m)
+
+        def walk(B, M_, p, ok):
+            if B >= L:
+                return
+            MC = M_ | (1 << B)
+            q = p * rhos[:, B]
+            a = ok & (((allowed >> B) & 1) == 1)
+            visit(MC, q, a)
+            walk(B + 1, MC, q, a)
+            walk(B + 1, M_, p, ok)
+
+        root = np.full(b, M, np.float64)
+        visit(0, root, ok_s)
+        walk(0, 0, root, ok_s)
+    return best_m
+
+
+def _model_warp(cost, rhos, M, allowed):
+    b, n = rhos.shape
+    al = np.full(b, -1, np.int64) if allowed is None else allowed
+    lanes_v, lanes_m = [], []
+    for lane in range(32):
+        p = np.full(b, M, np.float64)
+        for j in range(5):
+            if (lane >> j) & 1:
+                p = p * rhos[:, j]
+        alive = (lane & ~al) == 0
+        bv = np.where(alive, cost[lane] + p, np.inf)
+        bm = np.where(alive, lane, 1 << n).astype(np.int64)
+
+        def walk(start, m, p, live):
+            nonlocal bv, bm
+            for bit in range(start, n):
+                ok = live & (((al >> bit) & 1) == 1)
+                q = p * rhos[:, bit]
+                mc = m | (1 << bit)
+                phi = cost[mc] + q
+                take = ok & _lexi_better(phi, mc, bv, bm)
+                bv = np.where(take, phi, bv)
+                bm = np.where(take, mc, bm)
+                walk(bit + 1, mc, q, ok)
+
+        walk(5, lane, p, alive)
+        lanes_v.append(bv)
+        lanes_m.append(bm)
+    v, m = np.stack(lanes_v), np.stack(lanes_m)
+    best_v, best_m = v[0], m[0]
+    for lane in range(1, 32):
+        take = _lexi_better(v[lane], m[lane], best_v, best_m)
+        best_v = np.where(take, v[lane], best_v)
+        best_m = np.where(take, m[lane], best_m)
+    return best_m
+
+
+def _tie_rows(rng, n, b):
+    """Rows of 0, 1 and 0.5 rhos (exact ties across subset sizes) among
+    random ones, with costs that tie whole subset sizes."""
+    costs = np.where(rng.random(n) < 0.5, 2.0, rng.uniform(0.05, 5.0, n))
+    rhos = rng.uniform(0.0, 1.0, (b, n))
+    for i, val in ((0, 0.0), (1, 1.0), (2, 0.5), (7, 0.5), (31, 1.0),
+                   (32, 0.0), (40, 0.5)):
+        rhos[i % b] = val
+    return costs, rhos, float(rng.choice([2.0, 100.0, 3.5]))
+
+
+@pytest.mark.parametrize("with_allowed", [False, True])
+@pytest.mark.parametrize("n", list(range(1, 13)))
+def test_kernel_walk_model_matches_subset_dp_argmin(n, with_allowed):
+    """The kernel's walk (modelled in NumPy, IEEE float64 like the card's
+    ``_rn`` operations) picks ``_subset_dp``'s first minimum bit for bit,
+    on rows where exact ties abound, for both the row-per-thread (n <= 8)
+    and the warp-per-row (n > 8) orders."""
+    rng = np.random.default_rng(900 + n + 20 * with_allowed)
+    b = 48
+    costs, rhos, M = _tie_rows(rng, n, b)
+    allowed = None
+    if with_allowed:
+        allowed = rng.integers(0, 1 << n, b, dtype=np.int64)
+        allowed[:3] = [0, (1 << n) - 1, (1 << n) - 1]
+    phi = _subset_dp(costs, rhos, M)
+    if allowed is not None:
+        phi[(np.arange(1 << n)[None, :] & ~allowed[:, None]) != 0] = np.inf
+    want = np.argmin(phi, axis=1)
+    cost = ops.subset_costs(costs, n, "cpu").numpy()
+    model = _model_rows if n <= ops.UNROLL_MAX_N else _model_warp
+    got = model(cost, rhos, M, allowed)
+    np.testing.assert_array_equal(got, want)
+    assert np.array_equal(ops.subset_argmin(costs, rhos, M, allowed=allowed,
+                                            device="cpu").numpy(), want)
