@@ -47,10 +47,27 @@ Phases, each failing the run on any mismatch:
      (c2)'s sector rates at three spans beside a PyTorch gather of as many
      random bytes; and the ``--replay`` serving entry point once per
      regime;
-  5. golden on the card: ``exhaustive_small`` (its fna_cal speculation
-     tables through the kernel too) and ``fig4_gradle`` equal to
-     ``tests/golden/*.json`` bit for bit;
-  6. the LM serving path: (d1) the flash-attention and SSD kernels against
+  5. golden on the card: all 15 ``tests/golden/*.json`` files through the
+     port's own scenario layer (``scenario_grid``, the grid step of
+     ``run_scenario``: the port's scenarios, its trace-file loader on
+     ``tests/data`` for ``trace_file_smoke``, its topology layer for
+     ``topo_path``/``topo_tree``), every ``SimResult``/``TopoResult``
+     equal to its golden cell field for field; ``exhaustive_small`` runs
+     each policy on its own so that each one's kernel launches are read
+     (fna/fno tables and fna_cal's speculation tables);
+  6. the grid at paper scale: ``run_grid`` over (b)'s configuration on
+     the decision-side axis ``miss_penalty`` in (25, 100, 1000), policies
+     fno/fna/pi, with an artifact store in a temporary directory of
+     ``build/``: one sweep for the three cells, subset-DP launches read
+     around it, its 100.0 cell equal to (b)'s results field for field;
+     then the same call again on the same store — no sweep, no kernel
+     launch (every table from the store), identical results; phase times
+     and the store's bytes printed;
+  7. ``topo_path`` at paper scale: 1M gradle requests, depths 1, 2 and 3,
+     policies pi/fno/fna, per-tier sweeps shared across the depths; its
+     depth-1 cell equal to ``run_policies`` of the same tier
+     configuration on the card;
+  8. the LM serving path: (d1) the flash-attention and SSD kernels against
      their plain versions on the card — flash at the serve shapes
      [1, 24 | 512, 9/3, 64] and a long prefill [1, 2048, 9/3, 64], float32
      (CUDA-core kernel) at 2e-5 and bf16 (wgmma kernel) at 3e-2 and, since
@@ -100,6 +117,8 @@ PEAK_FP32_FLOPS = 67e12
 PAPER = dict(cache_size=10_000, update_interval=1_000, bpe=14.0,
              est_interval=50, miss_penalty=100.0, seed=0)
 N_REQUESTS = 1_000_000
+#: the grid phase: (b)'s configuration over the decision-side axis
+GRID_PENALTIES = (25.0, 100.0, 1000.0)
 DEAD_BAND = 1e-12
 #: float32 router decisions: relative gap between the two best prefix
 #: costs inside which card and CPU may choose differently.  float32 keeps
@@ -363,8 +382,8 @@ def _print_results(tag, res, policies, card):
 
 
 def phase_slice(dev, card: str):
-    """Phase 3: both paper-scale configurations; returns the kernel
-    record inputs measured on (b)'s main path."""
+    """Phase 3: both paper-scale configurations; returns (b)'s sweep,
+    configuration, results and main-path kernel launches."""
     from repro_torch.cachesim import SimConfig, get_trace, run_policies
     from repro_torch.kernels.subsetdp import ops
     trace = get_trace("gradle", N_REQUESTS, seed=0)
@@ -405,7 +424,7 @@ def phase_slice(dev, card: str):
               f"(b) {p}: card result != CPU result")
     print(f"[slice b] card results == CPU results for {pol_b} (CPU run "
           f"{cpu_s:.3f} s on the host's cores)")
-    return st_b, cfg_b, launches
+    return st_b, cfg_b, res_b, launches
 
 
 def _popcount(x, n: int):
@@ -413,20 +432,20 @@ def _popcount(x, n: int):
     return ((x[:, None] >> torch.arange(n, device=x.device)) & 1).sum(1)
 
 
-def argmin_work(rhos, allowed):
+def argmin_work(rhos, mp, allowed):
     """(fp64 operations, bytes) that ``subset_argmin`` needs on these
     inputs: one multiply per non-empty allowed mask (a subset's product is
     its prefix's times one rho) and one add per allowed mask — only the
     subsets of ``allowed[b]`` where it is given; every input read once
-    (rhos, the 2^n cost vector, M, allowed) and the [B] output written
-    once.  The compare is not counted: every value is >= 0, so it can run
-    on the integer pipe beside the fp64 one."""
+    (rhos, the 2^n cost vector, M — one value or one a row —, allowed) and
+    the [B] output written once.  The compare is not counted: every value
+    is >= 0, so it can run on the integer pipe beside the fp64 one."""
     b, n = rhos.shape
     k = 1 << n
     masks = b * k if allowed is None else \
         int((1 << _popcount(allowed, n)).sum())
     ops = 2 * masks - b
-    nbytes = rhos.numel() * 8 + k * 8 + 8 + b * 8 + \
+    nbytes = rhos.numel() * 8 + k * 8 + mp.numel() * 8 + b * 8 + \
         (0 if allowed is None else b * 8)
     return ops, nbytes
 
@@ -469,12 +488,16 @@ def _summed(name: str, launches: list, card: str) -> dict:
 
 
 def phase_kernel_times(st, cfg, launches, card: str):
-    """The kernel against its plain version on (b)'s main-path inputs, the
-    rows of the two launches the main path makes, as it lays them out
-    (``core.batched._exhaustive_rows``): the fna table's [V * 256, 8] rho
-    rows by version, the fno table's by pattern with CS_FNO ``allowed`` =
-    each row's pattern; M is the device tensor the main path passes.  Each
-    launch is timed beside its own bound; the record holds their sums."""
+    """The kernel against its plain version on the main path's inputs, the
+    rows of each launch the paths make, as they lay them out
+    (``core.batched._exhaustive_rows``): slice (b)'s two launches — the fna
+    table's [V * 256, 8] rho rows by version, the fno table's by pattern
+    with CS_FNO ``allowed`` = each row's pattern, M the device tensor the
+    path passes — and the grid's two, the same rows once per miss penalty
+    with one penalty a row (``exhaustive_tables_cells``).  Each launch is
+    timed beside its own bound; the record holds their sums.  ``launches``
+    maps each path that drives the kernel to its count; the record's
+    ``launches`` is their sum."""
     import torch
     from repro_torch.core.batched import _exhaustive_rows
     from repro_torch.kernels.subsetdp import ops, ref
@@ -482,30 +505,39 @@ def phase_kernel_times(st, cfg, launches, card: str):
     costs = list(cfg.costs)
     before = dict(ops.LAUNCHES)
     per_launch, err = [], 0
-    for policy in ("fna", "fno"):
-        rhos, allowed = _exhaustive_rows(d["pi"], d["nu"], policy == "fno")
-        b, n = rhos.shape
-        dev = rhos.device
-        cost = ops.subset_costs(costs, n, dev)
-        mp = torch.as_tensor([cfg.miss_penalty], dtype=torch.float64,
-                             device=dev)
-        kern = ops.subset_argmin(costs, rhos, mp, allowed=allowed)
-        plain = ref.subset_argmin_ref(cost, rhos, mp, allowed)
-        e = int((kern - plain).abs().max())
-        err = max(err, e)
-        check(e == 0, f"subset_argmin != plain on (b)'s {policy} table")
-        ms = device_ms(lambda: ops.subset_argmin(costs, rhos, mp,
-                                               allowed=allowed), 20)
-        plain_ms = device_ms(lambda: ref.subset_argmin_ref(cost, rhos, mp,
-                                                         allowed), 2)
-        n_ops, nbytes = argmin_work(rhos, allowed)
-        bound_ms, by = bound(n_ops, nbytes, PEAK_FP64_UNFUSED_OPS)
-        _times_line(f"subset_argmin {policy} table B={b} n={n}", ms,
-                    plain_ms, bound_ms, by, f"{n_ops} fp64 operations, "
-                    f"{nbytes} bytes", card)
-        per_launch.append({"launch": policy, "ms": ms, "plain_ms": plain_ms,
-                           "bound_ms": bound_ms, "bound_by": by})
-    total = _summed("subset_argmin, both launches", per_launch, card)
+    v, n = d["pi"].shape
+    dev = d["pi"].device
+    cost = ops.subset_costs(costs, n, dev)
+    for path, pens in (("slice_b", (cfg.miss_penalty,)),
+                       ("grid", GRID_PENALTIES)):
+        mp = torch.as_tensor(pens, dtype=torch.float64, device=dev)
+        if len(pens) > 1:
+            mp = mp.repeat_interleave(v << n)
+        for policy in ("fna", "fno"):
+            rhos, allowed = _exhaustive_rows(d["pi"], d["nu"],
+                                             policy == "fno", len(pens))
+            b = rhos.shape[0]
+            kern = ops.subset_argmin(costs, rhos, mp, allowed=allowed)
+            plain = ref.subset_argmin_ref(cost, rhos, mp, allowed)
+            e = int((kern - plain).abs().max())
+            err = max(err, e)
+            check(e == 0, f"subset_argmin != plain on {path}'s {policy} "
+                          f"table")
+            ms = device_ms(lambda: ops.subset_argmin(costs, rhos, mp,
+                                                   allowed=allowed), 20)
+            plain_ms = device_ms(lambda: ref.subset_argmin_ref(
+                cost, rhos, mp, allowed), 2)
+            n_ops, nbytes = argmin_work(rhos, mp, allowed)
+            bound_ms, by = bound(n_ops, nbytes, PEAK_FP64_UNFUSED_OPS)
+            _times_line(f"subset_argmin {path} {policy} table B={b} n={n}",
+                        ms, plain_ms, bound_ms, by, f"{n_ops} fp64 "
+                        f"operations, {nbytes} bytes", card)
+            per_launch.append({"launch": f"{path} {policy}", "ms": ms,
+                               "plain_ms": plain_ms, "bound_ms": bound_ms,
+                               "bound_by": by})
+    total = _summed("subset_argmin, the main path's launches", per_launch,
+                    card)
+    mp = torch.as_tensor([cfg.miss_penalty], dtype=torch.float64, device=dev)
     # subset_prod (validation counterpart, off the main path) at a slice
     # of the fna rows: its [rows, 2^n] output is what the fused kernel
     # keeps out of device memory
@@ -522,8 +554,8 @@ def phase_kernel_times(st, cfg, launches, card: str):
         "name": "subsetdp.subset_argmin", "route": "cuda",
         "source": "src/repro_torch/kernels/subsetdp/csrc/subsetdp.cu",
         "replaces": "src/repro/kernels/subsetdp/subsetdp.py:41",
-        "launches": launches["subset_argmin"], "max_abs_err": err,
-        "library_ms": None, **total,
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "max_abs_err": err, "library_ms": None, **total,
     }
 
 
@@ -786,55 +818,178 @@ def phase_serve() -> None:
         check(rc == 0, f"serve --replay {regime} exited {rc}")
 
 
-#: golden scenarios re-run on the card, configs as the scenario registry
-#: defines them (tests/golden/<name>.json holds the reference's results)
-GOLDEN = {
-    "exhaustive_small": dict(
-        base=dict(n_caches=4, costs=(1.0, 2.0, 3.0, 1.5), cache_size=1_500,
-                  alg="exhaustive", seed=1),
-        values=(100, 800)),
-    "fig4_gradle": dict(base=dict(cache_size=2_000, seed=1),
-                        values=(64, 512)),
-}
+def _golden_fields(res) -> dict:
+    """Every field of a result dataclass as a golden file holds it."""
+    out = {}
+    for f in dataclasses.fields(res):
+        v = getattr(res, f.name)
+        out[f.name] = list(v) if isinstance(v, tuple) else v
+    return out
 
 
-def phase_golden(dev, card: str) -> None:
-    """Each policy run on its own, so the kernel launches of each are
-    read: with the exhaustive subroutine, fna/fno build their tables and
-    fna_cal its speculation tables through ``subset_argmin``."""
-    from repro_torch.cachesim import SimConfig, get_trace, run_policies
+def phase_golden(dev, card: str) -> dict:
+    """Phase 5: all 15 golden files through the port's scenario layer on
+    the card; returns ``exhaustive_small``'s subset-DP launches per
+    policy."""
+    from repro_torch.cachesim import (GOLDEN_SCENARIOS, get_scenario,
+                                      scenario_grid)
+    from repro_torch.cachesim.scenarios import scenario_records
+    from repro_torch.cachesim.sweep import hashable_label
     from repro_torch.kernels.subsetdp import ops
-    policies = ("fna", "fna_cal", "fno", "pi")
-    trace = get_trace("gradle", 5_000, seed=1)
-    for name, spec in GOLDEN.items():
+    t_all = time.perf_counter()
+    launches = {}
+    for name in GOLDEN_SCENARIOS:
+        sc = get_scenario(name)
         payload = json.loads(
             (ROOT / "tests" / "golden" / f"{name}.json").read_text())
-        check(payload["axis"] == "update_interval" and
-              payload["n_requests"] == 5_000, f"{name}: unexpected file")
-        got = {v: {} for v in spec["values"]}
-        launches = dict.fromkeys(policies, 0)
-        for v in spec["values"]:
-            cfg = SimConfig(update_interval=v, **spec["base"])
-            for p in policies:
+        check(payload["axis"] == sc.axis and
+              payload["n_requests"] == sc.golden_n_requests,
+              f"{name}: unexpected golden file")
+        t0 = time.perf_counter()
+        if name == "exhaustive_small":
+            grid = {}
+            for p in sc.policies:
                 ops.reset_launches()
-                got[v].update(run_policies(trace, cfg, (p,), device=dev))
-                launches[p] += ops.LAUNCHES["subset_argmin"]
-        if spec["base"].get("alg") == "exhaustive":
+                part, values = scenario_grid(sc, golden=True, policies=(p,),
+                                             device=dev)
+                launches[p] = ops.LAUNCHES["subset_argmin"]
+                for key, cell in part.items():
+                    grid.setdefault(key, {}).update(cell)
             check(all(launches[p] > 0 for p in ("fna", "fna_cal", "fno")),
                   f"{name}: a policy built its tables without the kernel")
-        print(f"[golden] {name}: subset_argmin launches per policy "
-              f"{json.dumps(launches)}")
-        seen = 0
-        for cell in payload["cells"]:
-            res = got[cell["label"]][cell["policy"]]
-            check(dataclasses.asdict(res) == cell["result"],
-                  f"{name} {cell['label']} {cell['policy']}: card result "
-                  f"!= golden")
-            seen += 1
-        check(seen == len(spec["values"]) * len(policies),
+            print(f"[golden] {name}: subset_argmin launches per policy "
+                  f"{json.dumps(launches)}")
+        else:
+            grid, values = scenario_grid(sc, golden=True, device=dev)
+        sync()
+        secs = time.perf_counter() - t0
+        records = scenario_records(sc, grid, values)
+        cells = payload["cells"]
+        check(len(cells) == len(records) == len(grid) * len(sc.policies),
               f"{name}: golden cells missing")
-        print(f"[golden] {name}: {seen} cells equal to tests/golden "
-              f"bit for bit ({card})")
+        for cell in cells:
+            key = (cell["trace"], hashable_label(cell["label"]))
+            res = grid[key][cell["policy"]]
+            check(_golden_fields(res) == cell["result"],
+                  f"{name} {key} {cell['policy']}: card result != golden")
+        print(f"[golden] {name}: {len(cells)} {type(res).__name__} cells "
+              f"equal to tests/golden bit for bit, {secs:.3f} s ({card})")
+    print(f"[golden] all {len(GOLDEN_SCENARIOS)} golden files equal on the "
+          f"card in {time.perf_counter() - t_all:.3f} s ({card})")
+    return launches
+
+
+def _store_bytes(store) -> dict:
+    out = {}
+    for _, kind, size, _ in store.entries():
+        out[kind] = out.get(kind, 0) + size
+    return out
+
+
+def phase_grid(dev, cfg_b, res_b, card: str) -> dict:
+    """Phase 6: ``run_grid`` at paper scale, cold then warm on one store;
+    returns the subset-DP launches of each run."""
+    import tempfile
+    import repro_torch.cachesim.systemstate as systemstate
+    from repro_torch.cachesim import ArtifactStore, RunReport, get_trace, \
+        run_grid
+    from repro_torch.kernels.subsetdp import ops
+    trace = get_trace("gradle", N_REQUESTS, seed=0)
+    pol = ("fno", "fna", "pi")
+    (ROOT / "build").mkdir(exist_ok=True)
+    launches, runs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="grid-store-",
+                                     dir=ROOT / "build") as root:
+        for tag in ("cold", "warm"):
+            store = ArtifactStore(root)
+            report = RunReport()
+            before = systemstate.SWEEPS_COMPUTED
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            grid = run_grid({"gradle": trace}, cfg_b, "miss_penalty",
+                            GRID_PENALTIES, policies=pol, store=store,
+                            device=dev, report=report)
+            sync()
+            secs = time.perf_counter() - t0
+            launches[tag] = ops.LAUNCHES["subset_argmin"]
+            runs[tag] = (grid, systemstate.SWEEPS_COMPUTED - before)
+            print(f"[grid] {tag}: run_grid n=8 exhaustive, miss_penalty "
+                  f"{GRID_PENALTIES}, policies {pol}, {N_REQUESTS} gradle "
+                  f"requests: {secs:.3f} s; {runs[tag][1]} sweeps computed; "
+                  f"subset_argmin launches {launches[tag]}; store "
+                  f"{json.dumps(store.stats)}, bytes "
+                  f"{json.dumps(_store_bytes(store))}; {_phases(report)} "
+                  f"({card})")
+    (cold, n_cold), (warm, n_warm) = runs["cold"], runs["warm"]
+    check(n_cold == 1, f"the cold grid computed {n_cold} sweeps, not 1")
+    check(launches["cold"] > 0, "the grid launched no subset_argmin kernel")
+    check(n_warm == 0 and launches["warm"] == 0,
+          f"the warm grid computed {n_warm} sweeps and made "
+          f"{launches['warm']} kernel launches")
+    for p in pol:
+        got = cold[("gradle", 100.0)][p]
+        check(dataclasses.asdict(got) == dataclasses.asdict(res_b[p]) and
+              got.to_dict() == res_b[p].to_dict(),
+              f"grid cell 100.0 {p} != slice (b)'s result")
+    for key, cell in cold.items():
+        for p, res in cell.items():
+            check(dataclasses.asdict(res) ==
+                  dataclasses.asdict(warm[key][p]) and
+                  (res.advert_events, res.advert_bytes) ==
+                  (warm[key][p].advert_events, warm[key][p].advert_bytes),
+                  f"warm grid {key} {p} != cold")
+        print(f"[grid] {key}: " + ", ".join(
+            f"{p} mean_cost {res.mean_cost!r}" for p, res in cell.items()))
+    print(f"[grid] one sweep for {len(GRID_PENALTIES)} cells; the 100.0 "
+          f"cell equals slice (b) field for field; the warm run computed no "
+          f"sweep, launched no kernel and returned identical results")
+    return launches
+
+
+def phase_topology(dev, card: str) -> None:
+    """Phase 7: ``topo_path`` at 1M requests, depths 1-3; its depth-1 cell
+    against the flat engine on the same tier configuration."""
+    import repro_torch.cachesim.systemstate as systemstate
+    from repro_torch.cachesim import (SimResult, get_scenario, run_policies,
+                                      scenario_grid)
+    from repro_torch.cachesim.scenarios import scenario_records
+    from repro_torch.cachesim.topology import topo_cell
+    sc = get_scenario("topo_path")
+    pol = ("pi", "fno", "fna")
+    before = systemstate.SWEEPS_COMPUTED
+    t0 = time.perf_counter()
+    grid, values = scenario_grid(sc, n_requests=N_REQUESTS, policies=pol,
+                                 device=dev)
+    sync()
+    secs = time.perf_counter() - t0
+    records = scenario_records(sc, grid, values)
+    check(len(records) == len(values) * len(pol), "topo_path records")
+    print(f"[topo] topo_path, {N_REQUESTS} gradle requests, depths {values}, "
+          f"policies {pol}: {secs:.3f} s, "
+          f"{systemstate.SWEEPS_COMPUTED - before} tier sweeps ({card})")
+    for d in values:
+        cell = grid[("gradle", d)]
+        first = cell[pol[0]]
+        print(f"[topo] depth {d}: tier arrivals {first.tier_arrivals}, tier "
+              f"rejected {first.tier_rejected}; " + ", ".join(
+                  f"{p} mean_cost {r.mean_cost!r} mean_latency "
+                  f"{r.mean_latency!r} tier hits {r.tier_hits}"
+                  for p, r in cell.items()))
+    trace = sc.make_traces(N_REQUESTS)["gradle"]
+    cfg = topo_cell(sc.config(), {"depth": 1}).node_config(0, 0)
+    t0 = time.perf_counter()
+    flat = run_policies(trace, cfg, pol, device=dev)
+    flat_s = time.perf_counter() - t0
+    for p in pol:
+        got = grid[("gradle", 1)][p]
+        for f in dataclasses.fields(SimResult):
+            check(getattr(got, f.name) == getattr(flat[p], f.name),
+                  f"topo_path depth 1 {p} {f.name} != flat run_policies")
+        check((got.advert_events, got.advert_bytes) ==
+              (flat[p].advert_events, flat[p].advert_bytes),
+              f"topo_path depth 1 {p}: advert totals != flat")
+    print(f"[topo] depth-1 cell == flat run_policies on the same tier "
+          f"configuration for {pol} (flat run {flat_s:.3f} s) ({card})")
 
 
 # ---------------------------------------------------------------------------
@@ -1194,7 +1349,7 @@ def phase_lm_times(dev, launches: dict, errs: dict, card: str):
 
 
 def phase_lm(dev, card: str):
-    """Phase 6: the LM serving path; returns the two kernel records."""
+    """Phase 8: the LM serving path; returns the two kernel records."""
     errs = phase_lm_kernel_checks(dev)
     launches = phase_lm_serve(card)
     for arch in LM_COMPARE:
@@ -1216,11 +1371,16 @@ def main() -> int:
     t_all = time.perf_counter()
     phase_build(card)
     phase_kernel_checks(dev)
-    st_b, cfg_b, launches = phase_slice(dev, card)
-    record = phase_kernel_times(st_b, cfg_b, launches, card)
+    st_b, cfg_b, res_b, launches = phase_slice(dev, card)
     bloom_record = phase_router(dev, st_b, cfg_b, card)
     phase_serve()
     phase_golden(dev, card)
+    grid_launches = phase_grid(dev, cfg_b, res_b, card)
+    phase_topology(dev, card)
+    record = phase_kernel_times(
+        st_b, cfg_b, {"slice_b": launches["subset_argmin"],
+                      "grid_cold": grid_launches["cold"],
+                      "grid_warm": grid_launches["warm"]}, card)
     lm_records = phase_lm(dev, card)
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(card)

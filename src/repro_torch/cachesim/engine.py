@@ -36,8 +36,12 @@ Table plans memoise their tables on ``st.plan_cache`` keyed by the
 decision-side configuration (costs, miss penalty, CS_FNO flag), which is
 also the hand-off point of :func:`prefetch_tables`: cells that differ only
 in plan inputs share ONE sweep, and their table builds stack into one
-batched call per provider family.  The reference's artifact store and
-device mesh are not ported yet (grid layer, later slice).
+batched call per provider family.  :func:`run_cells` also consults the
+content-addressed artifact store (``repro_torch.cachesim.store``): stored
+sweeps hydrate onto the run's device, stored tables load onto it, and
+new ones are saved after the replays.  The reference's device mesh (the
+cell axis sharded over several devices) is not ported: the port runs on
+one card and takes ``mesh=None`` only (ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -291,6 +295,33 @@ def plan_for(cfg) -> Optional[DecisionPlan]:
 # Cross-cell sharing for decision-side sweep axes
 # ---------------------------------------------------------------------------
 
+def table_keys_for(cfgs: Sequence, policies: Sequence[str]):
+    """Every distinct ``plan_cache`` key a (cells x policies) panel will
+    consult, in first-use order — the preload/flush manifest of the
+    artifact store (``repro_torch.cachesim.store``)."""
+    keys = []
+    seen = set()
+    for cfg in cfgs:
+        for p in policies:
+            pcfg = dataclasses.replace(cfg, policy=p)
+            plan = plan_for(pcfg)
+            if not isinstance(plan, TablePlan):
+                continue
+            key = plan.cache_key(pcfg)
+            if key not in seen:
+                seen.add(key)
+                keys.append(key)
+    return keys
+
+
+def check_mesh(mesh) -> None:
+    """The port runs a grid on one device: ``mesh`` must be None."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh: sharding the cell axis over a device mesh is not ported "
+            "(ROADMAP A5); the port runs on one device, pass mesh=None")
+
+
 def _plan_jobs(system, cfgs, policies, plan_cls):
     """Unseeded (cache key, configured pcfg) pairs dispatching to
     ``plan_cls``, deduplicated in first-use order."""
@@ -406,8 +437,8 @@ class RunReport:
 
 def run_cells(trace: np.ndarray, cfgs: Sequence, policies: Sequence[str],
               share_system: bool = True, *, device: DeviceLike = None,
-              chunk_size: Optional[int] = None, spill=None,
-              report: Optional[RunReport] = None) -> List[Dict]:
+              mesh=None, store=None, chunk_size: Optional[int] = None,
+              spill=None, report: Optional[RunReport] = None) -> List[Dict]:
     """Run a policy panel over several decision-side cells that share one
     system evolution on ``device`` (``None`` -> ``cuda``); returns
     ``[{policy: SimResult}]`` aligned with ``cfgs``.
@@ -419,26 +450,57 @@ def run_cells(trace: np.ndarray, cfgs: Sequence, policies: Sequence[str],
     ``share_system=False`` forces independent full runs; the reference
     engine always runs full.  ``chunk_size``/``spill`` stream phase 1
     (bit-identity-preserving, see ``SystemTrace.compute``).  ``report``
-    (optional) receives the sweep and the phase times.
+    (optional) receives the sweep and the phase times (a stored sweep's
+    load counts as phase 1).
+
+    ``store`` (an ``ArtifactStore``, a root path, or None) consults the
+    content-addressed artifact store before the sweep: a hit hydrates the
+    stored ``SystemTrace`` onto ``device`` (bit-identical replay) instead
+    of computing, a miss computes and persists it.  Decision tables
+    stored for ``device``'s type are preloaded onto it, and any freshly
+    built ones are saved after the replays — keyed on the device type, so
+    a card-built table never serves a CPU run, nor the other way round.
+
+    ``mesh`` must be None: the reference's sharding of the cell axis over
+    a device mesh is not ported (the port runs on one device).
     """
     from repro_torch.cachesim.simulator import Simulator
+    from repro_torch.cachesim.store import as_store
     from repro_torch.cachesim.systemstate import SystemTrace
+    check_mesh(mesh)
     device = resolve_device(device)
     trace = np.asarray(trace, dtype=np.uint64)
     out: List[Dict] = [dict() for _ in cfgs]
     system = None
     share = share_system and bool(cfgs) and trace.shape[0] > 0 and \
         all(cfg.engine == "fast" for cfg in cfgs)
+    store = as_store(store) if share else None
+    digest = None
+    preloaded = set()
     if share and any(plan_for(dataclasses.replace(cfg, policy=p)) is not None
                      for cfg in cfgs for p in policies):
         t0 = time.perf_counter()
-        system = SystemTrace.compute(Simulator(cfgs[0], device), trace,
-                                     chunk_size=chunk_size, spill=spill)
+        sys_key = SystemTrace.system_key(cfgs[0])
+        if store is not None:
+            digest = store.trace_digest(trace)
+            system = store.load_sweep(trace, sys_key, device=device,
+                                      trace_digest=digest)
+        if system is None:
+            system = SystemTrace.compute(Simulator(cfgs[0], device), trace,
+                                         chunk_size=chunk_size, spill=spill)
+            if store is not None:
+                store.save_sweep(system, trace_digest=digest)
         system.device_arrays()
         if report is not None:
             report.system = system
             report.phase1_s += report.since(t0, device)
             t0 = time.perf_counter()
+        if store is not None:
+            for key in table_keys_for(cfgs, policies):
+                tab = store.load_table(digest, sys_key, key, device)
+                if tab is not None:
+                    system.plan_cache[key] = tab
+                    preloaded.add(key)
         prefetch_tables(system, cfgs, policies)
         if report is not None:
             report.prefetch_s += report.since(t0, device)
@@ -450,4 +512,10 @@ def run_cells(trace: np.ndarray, cfgs: Sequence, policies: Sequence[str],
                                  chunk_size=chunk_size, report=report)
             if share_system and system is None:
                 system = getattr(sim, "last_system", None)
+    # save the tables built this run (prefetched or replay-built) so the
+    # next warm run starts with every lookup already on disk
+    if store is not None and digest is not None:
+        for key, tab in system.plan_cache.items():
+            if key not in preloaded:
+                store.save_table(digest, system.key, key, tab)
     return out

@@ -65,6 +65,7 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.cachesim.systemstate import SystemTrace
 from repro_torch.core.batched import rho_exhaustive_tables, rho_selection_tables
@@ -85,10 +86,21 @@ _BRIDGE_LEN = 32             # scalar requests per bridge stretch
 _MAX_SEG_VERSIONS = 16
 
 
+def replay_fna_cal(sim, st: SystemTrace, res):
+    """Full fna_cal fast replay: committed selections (moved to
+    ``st.device`` once) + the shared fold."""
+    from repro_torch.cachesim.fastpath import accumulate_replay
+    selm = torch.as_tensor(fna_cal_selections(sim, st), device=st.device)
+    return accumulate_replay(res, st, selm,
+                             [float(c) for c in sim.cfg.costs],
+                             float(sim.cfg.miss_penalty))
+
+
 def fna_cal_selections(sim, st: SystemTrace) -> np.ndarray:
     """[N] committed (post-exploration) selection bitmasks for fna_cal —
     the speculate/verify/bridge engine described in the module docstring,
-    minus the cost fold."""
+    minus the cost fold.  Exposed separately so the topology layer can
+    re-account the same decisions under per-tier penalties."""
     cfg = sim.cfg
     n = st.n
     N = st.trace_len

@@ -467,9 +467,20 @@ class Simulator:
                             report=report)
         return self._run_reference(trace, res)
 
-    def _run_reference(self, trace: np.ndarray, res: SimResult) -> SimResult:
-        """The seed per-request scalar loop — the bit-exact oracle."""
+    def _run_reference(self, trace: np.ndarray, res: SimResult,
+                       record: Optional[dict] = None) -> SimResult:
+        """The seed per-request scalar loop — the bit-exact oracle.
+
+        ``record``, when given a dict, is filled with the loop's
+        per-request observables — ``selm`` (committed post-exploration
+        selection bitmask), ``in_dj`` (designated-cache residency),
+        ``pats`` (indication-pattern bitmask) and ``dj`` (designated
+        cache index) — without altering any computation.  This is how
+        ``repro_torch.cachesim.topology`` runs its reference path: the
+        same oracle loop per tier, re-accounted under per-tier knobs."""
         cfg = self.cfg
+        # view state is (re-)initialised here, not only in run(), so the
+        # recording path can drive the oracle loop directly
         self._pi = [1.0] * cfg.n_caches
         self._nu = [1.0] * cfg.n_caches
         self._view_ver = [None] * cfg.n_caches
@@ -498,6 +509,12 @@ class Simulator:
         is_pi = cfg.policy == "pi"
         is_fna = cfg.policy == "fna"
         alg = self.alg
+        if record is not None:
+            Nr = trace.shape[0]
+            record["selm"] = np.zeros(Nr, dtype=np.int64)
+            record["in_dj"] = np.zeros(Nr, dtype=bool)
+            record["pats"] = np.zeros(Nr, dtype=np.int64)
+            record["dj"] = np.zeros(Nr, dtype=np.int64)
         for i in range(trace.shape[0]):
             x = int(trace[i])
             indications = [bool(nodes[j].ind.stale[idx_all[j][i]].all())
@@ -568,6 +585,12 @@ class Simulator:
                         else:
                             nu_emp[j] = (1 - g) * nu_emp[j] + g * absent
                             nu_obs[j] += 1
+            if record is not None:
+                record["in_dj"][i] = in_dj
+                record["dj"][i] = dj
+                record["pats"][i] = sum(1 << j for j in range(n)
+                                        if indications[j])
+                record["selm"][i] = sum(1 << j for j in sel)
             # --- realised cost ---
             cost = sum(costs[j] for j in sel)
             hit = any(x in nodes[j].lru for j in sel)

@@ -23,18 +23,19 @@ given (trace, system config) pair:
 
 Because none of this depends on the policy, a policy x trace sweep pays
 for ONE system sweep and reuses it for every policy: ``run_policies`` and
-``repro_torch.cachesim.engine.run_cells`` hand the artifact of the first
-fast run to every subsequent simulator, which then only executes the cheap
-per-policy table/replay phases (``repro_torch.cachesim.fastpath``,
+``repro_torch.cachesim.sweep`` hand the artifact of the first fast run to
+every subsequent simulator, which then only executes the cheap per-policy
+table/replay phases (``repro_torch.cachesim.fastpath``,
 ``repro_torch.cachesim.fna_cal_fast``).
 
 The sweep itself is the reference's NumPy/Python phase 1, unchanged (a
 copy of ``repro.cachesim.systemstate``).  A :class:`SystemTrace` carries
 the device of the simulator that computed it; the per-request arrays that
 the replay reads and the view history are moved there once
-(:meth:`SystemTrace.device_arrays`).  :meth:`SystemTrace.from_reference_arrays`
-builds one from the JAX package's ``SystemTrace.to_arrays()`` payload, so
-phases 2-3 can run on exactly the reference's phase-1 state.
+(:meth:`SystemTrace.device_arrays`).  :meth:`SystemTrace.from_arrays`
+rebuilds one from a ``to_arrays()`` payload — the artifact store's, or
+the JAX package's (the layouts are identical), so phases 2-3 can run on
+exactly the reference's phase-1 state.
 
 ``SWEEPS_COMPUTED`` counts :meth:`SystemTrace.compute` calls — tests use
 it to prove a multi-policy run performed exactly one sweep.
@@ -57,21 +58,10 @@ from repro_torch.cachesim.advert import (advert_cost, refill, resolve_advert,
 # incremented on every full system sweep (amortisation observability)
 SWEEPS_COMPUTED = 0
 
-#: the fixed field order quality counters serialise under (the reference
-#: store schema, which ``to_arrays``/``from_reference_arrays`` share)
+#: the fixed field order quality counters serialise under (the store
+#: schema, which the reference's ``to_arrays`` shares)
 _QUALITY_KEYS = ("fn_events", "fn_opportunities", "fp_events",
                  "fp_opportunities", "resident")
-
-
-def validate_chunk_size(chunk_size) -> None:
-    """Reject a non-int or < 1 ``chunk_size`` with a ValueError naming
-    the argument (bool is an int subclass — reject it explicitly)."""
-    if isinstance(chunk_size, bool) or \
-            not isinstance(chunk_size, (int, np.integer)):
-        raise ValueError(
-            f"chunk_size must be an int >= 1, got {chunk_size!r}")
-    if chunk_size < 1:
-        raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
 
 
 def _dedup_rows(rows: np.ndarray) -> np.ndarray:
@@ -319,17 +309,21 @@ def _alloc_outputs(N: int, n: int, spill):
     pats [N] int64, ver_per_req [N] int64)``.
 
     ``spill=None`` -> plain RAM.  Otherwise preallocated ``.npy``
-    memmaps in a fresh subdirectory of the given directory, filled
+    memmaps under the given directory (or under a fresh
+    ``ArtifactStore.spill_dir()`` when passed a store), filled
     chunk-by-chunk by the caller — memmaps ARE ndarrays, so every
-    downstream consumer (replay, ``to_arrays``) works unchanged.  The
-    caller owns the directory's lifetime; ``N == 0`` falls back to RAM
-    (zero-byte files cannot be mmapped)."""
+    downstream consumer (replay, ``to_arrays``, the store) works
+    unchanged.  The caller owns the directory's lifetime; ``N == 0``
+    falls back to RAM (zero-byte files cannot be mmapped)."""
     if spill is None or N == 0:
         return (np.empty((N, n), dtype=bool), np.empty(N, dtype=bool),
                 np.empty(N, dtype=np.int64), np.empty(N, dtype=np.int64),
                 np.empty(N, dtype=np.int64))
     from numpy.lib.format import open_memmap
-    d = Path(spill) / f"sweep-{os.getpid()}-{next(_SPILL_SEQ)}"
+    if hasattr(spill, "spill_dir"):     # an ArtifactStore
+        d = spill.spill_dir()
+    else:
+        d = Path(spill) / f"sweep-{os.getpid()}-{next(_SPILL_SEQ)}"
     d.mkdir(parents=True, exist_ok=True)
 
     def mm(name, dtype, shape):
@@ -418,8 +412,9 @@ class SystemTrace:
         designated positions, eviction lists — stays O(chunk) instead of
         O(trace).
 
-        ``spill`` (a directory path) additionally backs the per-request
-        OUTPUT arrays by preallocated ``.npy`` memmaps filled
+        ``spill`` (a directory path or an ``ArtifactStore``, whose
+        ``spill_dir()`` then scopes the files) additionally backs the
+        per-request OUTPUT arrays by preallocated ``.npy`` memmaps filled
         chunk-by-chunk, bounding peak RSS at O(chunk + cache state); the
         memmaps are ordinary ndarrays to every consumer.  The caller owns
         the spill directory's lifetime.
@@ -432,7 +427,9 @@ class SystemTrace:
         N = int(trace.shape[0])
         fresh = _is_fresh(sim)
         if chunk_size is not None:
-            validate_chunk_size(chunk_size)     # reject early, by name
+            # same contract as iter_trace_chunks: reject early, by name
+            from repro_torch.cachesim.tracefiles import validate_chunk_size
+            validate_chunk_size(chunk_size)
         step = N if chunk_size is None else min(int(chunk_size), N)
 
         # view inputs at entry — events below record every later change
@@ -538,23 +535,29 @@ class SystemTrace:
         """Positions (indices into THIS sweep's arrival stream) of the
         requests NOT resident in their designated cache — the
         residency-miss subsequence a parent tier receives when this
-        sweep's system is one hop of a hierarchy (the reference's
-        topology layer).  Hash-designated placement makes it
-        policy-independent.  Derived lazily from ``in_dj`` and memoised;
-        part of the ``to_arrays`` payload."""
+        sweep's system is one hop of a hierarchy
+        (``repro_torch.cachesim.topology``).  Hash-designated placement
+        makes it policy-independent, so the forwarded stream — and with
+        it every deeper tier's sweep — is shareable across policies and
+        topology cells exactly like the sweep itself.  Derived lazily from
+        ``in_dj`` and memoised; stored in the schema-v3 ``.npz`` payload so
+        hydrated sweeps skip the scan."""
         if self._fwd_pos is None:
             self._fwd_pos = np.flatnonzero(~self.in_dj).astype(np.int64)
         return self._fwd_pos
 
-    # -- serialisation (the reference store's payload layout) ---------------
+    # -- serialisation (the content-addressed artifact store) ---------------
 
     def to_arrays(self) -> Dict[str, np.ndarray]:
-        """Flatten the sweep into named ndarrays, key for key the payload
-        of the JAX package's ``SystemTrace.to_arrays`` (its artifact-store
-        ``.npz`` layout): per-request arrays as-is, the view-version
-        history as float64, the final-state snapshot as concatenated
-        per-node arrays plus length vectors.  The trace itself is not
-        included; ``plan_cache`` tables neither."""
+        """Flatten the sweep into named ndarrays — the ``.npz`` payload of
+        ``repro_torch.cachesim.store``, key for key the JAX package's
+        ``SystemTrace.to_arrays``.  Everything a replay consumes
+        round-trips bit-exactly: per-request arrays as-is, the
+        view-version history as float64, the final-state snapshot as
+        concatenated per-node arrays plus length vectors.  The trace
+        itself is NOT stored — the store keys entries on its content hash,
+        so :meth:`from_arrays` re-attaches the caller's array.
+        ``plan_cache`` tables are stored as separate per-key artifacts."""
         fs = self.final_state
         nodes, qs = fs["nodes"], fs["q"]
 
@@ -611,14 +614,13 @@ class SystemTrace:
         }
 
     @classmethod
-    def from_reference_arrays(cls, arrays, key: tuple, device,
-                              trace: np.ndarray) -> "SystemTrace":
-        """Rebuild a sweep on ``device`` from a ``to_arrays`` payload —
-        this port's, or the JAX package's (``repro.cachesim.systemstate.
-        SystemTrace.to_arrays()``; the layouts are identical), so phases
-        2-3 of the port can replay exactly the reference's phase-1 state.
-        ``key`` is the ``system_key`` of the configuration that computed
-        it, ``trace`` the request array it was computed over (``install``
+    def from_arrays(cls, arrays, key: tuple, trace: np.ndarray,
+                    device="cpu") -> "SystemTrace":
+        """Rebuild a sweep on ``device`` from :meth:`to_arrays` output.
+        ``key`` is the ``system_key`` the store looked the entry up under
+        (or of the configuration that computed it), ``trace`` the caller's
+        (content-hash-verified) request array — the hydrated sweep replays
+        bit-identically to the one :meth:`compute` built (``install``
         verifies both against the simulator that replays it)."""
         def _split(cat, lens):
             out, lo = [], 0
@@ -733,3 +735,12 @@ class SystemTrace:
         res.advert_bytes = (getattr(res, "advert_bytes", 0.0) +
                             sum(b for nd in nodes
                                 for b in nd["adv_bytes"]))
+
+    def advert_streams(self) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Per-cache advertisement event streams: one ``(insertion
+        ordinals int64, bytes-on-wire float64)`` array pair per cache,
+        read from the end-of-run snapshot.  Ordinals are absolute 1-based
+        insertion counts into that cache."""
+        return [(np.asarray(nd["adv_ins"], np.int64),
+                 np.asarray(nd["adv_bytes"], np.float64))
+                for nd in self.final_state["nodes"]]

@@ -16,9 +16,8 @@ matters for FNA behaviour):
                  records plus a hot set.
 
 Each generator is deterministic given (n, seed), and bit-identical to the
-JAX package's ``repro.cachesim.traces`` (a copy).  File-backed traces
-(``repro.cachesim.tracefiles``) are not ported yet; callers pass such a
-trace in as an array.
+JAX package's ``repro.cachesim.traces`` (a copy).  File-backed traces are
+read by the port's own loader (``repro_torch.cachesim.tracefiles``).
 """
 from __future__ import annotations
 
@@ -136,9 +135,18 @@ def loop_scan_trace(n: int, block: int = 30_000, hot: int = 2_000,
 
 
 def get_trace(name: str, n: int, seed: int = 0, **kwargs) -> np.ndarray:
-    """Generate a named synthetic trace (``wiki``/``gradle``/``scarab``/
-    ``f2``); ``kwargs`` pass through as catalog / skew / churn knobs, and
-    the no-kwargs call stays bit-identical per (name, n, seed)."""
+    """Generate or load a named trace.
+
+    ``name`` is a synthetic generator (``wiki``/``gradle``/``scarab``/
+    ``f2``; ``kwargs`` pass through as catalog / skew / churn knobs, and
+    the no-kwargs call stays bit-identical per (name, n, seed)), OR a
+    file-backed trace (``repro_torch.cachesim.tracefiles``): the literal
+    ``file:<path>`` spelling or an alias registered via
+    ``tracefiles.register_trace_file``.  For file traces ``n`` bounds the
+    returned length (head subsample), ``kwargs`` are loader knobs
+    (``fmt``/``key_column``/``head``/``stride``/...), and ``seed`` is
+    ignored — log replay is deterministic by nature.
+    """
     if name == "wiki":
         return zipf_trace(n, seed=seed, **kwargs)
     if name == "gradle":
@@ -147,4 +155,9 @@ def get_trace(name: str, n: int, seed: int = 0, **kwargs) -> np.ndarray:
         return mixed_trace(n, seed=seed, **kwargs)
     if name == "f2":
         return loop_scan_trace(n, seed=seed, **kwargs)
-    raise KeyError(f"unknown trace {name!r}; known generators: {TRACES}")
+    from repro_torch.cachesim import tracefiles
+    if tracefiles.is_trace_file(name):
+        return tracefiles.get_file_trace(name, n, **kwargs)
+    raise KeyError(
+        f"unknown trace {name!r}; known generators: {TRACES}, registered "
+        f"trace files: {sorted(tracefiles.TRACE_FILES)} (or 'file:<path>')")

@@ -120,8 +120,14 @@ def test_traces_equal(name):
 
 
 def test_unknown_trace_raises():
-    with pytest.raises(KeyError):
-        get_trace("file:/nonexistent.log", 10)
+    """A name that is neither a generator nor a trace file raises KeyError,
+    as in the reference; a ``file:`` trace whose file is missing raises
+    FileNotFoundError in both packages."""
+    for fn in (get_trace, ref_get_trace):
+        with pytest.raises(KeyError, match="unknown trace"):
+            fn("no_such_trace", 10)
+        with pytest.raises(FileNotFoundError):
+            fn("file:/nonexistent.log", 10)
 
 
 def test_lru_equal():

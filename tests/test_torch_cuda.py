@@ -12,7 +12,8 @@ Tolerances: none for the simulator's kernels.  Subset-DP products are
 compared byte for byte and argmins exactly; Bloom indications exactly; the
 exhaustive simulator results on the card equal the CPU's field for field.
 The LM kernels are float32 arithmetic in another summation order: each
-test states its tolerance.
+test states its tolerance.  The grid layer on the card (an exhaustive
+penalty grid, a store round trip) equals the CPU's field for field.
 """
 import dataclasses
 
@@ -20,7 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.cachesim import SimConfig, Simulator, get_trace, run_policies
+from repro_torch.cachesim import (ArtifactStore, SimConfig, Simulator,
+                                  get_trace, run_grid, run_policies)
 from repro_torch.core.batched import _subset_dp
 from repro_torch.kernels import bloom
 from repro_torch.kernels.subsetdp import ops, ref
@@ -157,6 +159,57 @@ def test_fna_cal_exhaustive_launches_kernel_on_card(card):
     assert ops.LAUNCHES["subset_argmin"] > 0
     want = Simulator(cfg, "cpu").run(trace)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+def _exhaustive_grid(dev, store=None):
+    traces = {"gradle": get_trace("gradle", 6_000, seed=4)}
+    base = SimConfig(n_caches=5, costs=(1.0, 2.0, 3.0, 1.5, 2.5),
+                     cache_size=800, update_interval=150, alg="exhaustive")
+    return run_grid(traces, base, "miss_penalty", (25.0, 100.0, 1000.0),
+                    policies=("fna", "fno", "pi"), store=store, device=dev)
+
+
+def _assert_grids_equal(got, want):
+    assert list(got) == list(want)
+    for key, cell in got.items():
+        for p, res in cell.items():
+            assert dataclasses.asdict(res) == \
+                dataclasses.asdict(want[key][p]), (key, p)
+
+
+@pytest.mark.cuda
+def test_exhaustive_grid_card_equals_cpu(card):
+    """A decision-side penalty grid on the card: one sweep, its stacked
+    exhaustive tables through the kernel, every cell equal to the CPU's."""
+    import repro_torch.cachesim.systemstate as systemstate
+    ops.reset_launches()
+    before = systemstate.SWEEPS_COMPUTED
+    got = _exhaustive_grid(card)
+    assert systemstate.SWEEPS_COMPUTED - before == 1
+    assert ops.LAUNCHES["subset_argmin"] > 0
+    _assert_grids_equal(got, _exhaustive_grid("cpu"))
+
+
+@pytest.mark.cuda
+def test_store_round_trip_on_card(card, tmp_path):
+    """Cold on the card populates the store (tables keyed ``cuda``); warm
+    on the card loads every table (no kernel launch, no sweep); a CPU run
+    on the same store shares the sweep but builds its own tables."""
+    import repro_torch.cachesim.systemstate as systemstate
+    cold = _exhaustive_grid(card, ArtifactStore(tmp_path))
+    warm_store = ArtifactStore(tmp_path)
+    ops.reset_launches()
+    before = systemstate.SWEEPS_COMPUTED
+    warm = _exhaustive_grid(card, warm_store)
+    assert systemstate.SWEEPS_COMPUTED == before
+    assert ops.LAUNCHES["subset_argmin"] == 0
+    assert warm_store.stats["table_hits"] == 6
+    _assert_grids_equal(warm, cold)
+    cpu_store = ArtifactStore(tmp_path)
+    cpu = _exhaustive_grid("cpu", cpu_store)
+    assert cpu_store.stats["sweep_hits"] == 1
+    assert cpu_store.stats["table_hits"] == 0
+    _assert_grids_equal(cpu, cold)
 
 
 def _bloom_instance(rng, n, mbytes, k, n_keys, dev):

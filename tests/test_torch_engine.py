@@ -3,16 +3,17 @@ reference and its committed golden results.
 
   * every flat golden file (``tests/golden/*.json`` except the topology
     ones) reproduced BIT FOR BIT by the port's fast engine, all policies,
-    with configs and traces taken from the reference's scenario registry
-    (the port has no scenario layer yet); cells of a decision-side axis
-    share one sweep through the port's ``run_cells``, exactly as the
-    reference's grid runner groups them;
+    cell by cell through ``run_cells``, with configs and traces from the
+    port's own scenario registry (``tests/test_torch_grid.py`` holds the
+    registry equal to the reference's and runs all 15 files through the
+    grid runner); cells of a decision-side axis share one sweep, exactly
+    as the grid runner groups them;
   * one golden cell per scenario through the port's reference loop;
   * the JAX fast engine and the port on one direct case (gradle, 20k
     requests, n = 5, both subroutines, four policies): identical results;
   * the port's phase-1 ``to_arrays()`` equals the reference's, and the
     port's phases 2-3 replayed on the reference's own phase-1 payload
-    (``SystemTrace.from_reference_arrays``) equal the reference's replay;
+    (``SystemTrace.from_arrays``) equal the reference's replay;
   * the calibrated policy's exhaustive speculation tables go through the
     subset-DP entry point, and a ``RunReport`` records a run's phases
     without changing its results.
@@ -26,14 +27,14 @@ import pytest
 
 from repro.cachesim import SimConfig as RefSimConfig
 from repro.cachesim import Simulator as RefSimulator
-from repro.cachesim import get_scenario
 from repro.cachesim import run_policies as ref_run_policies
-from repro.cachesim.scenarios import GOLDEN_SCENARIOS
-from repro.cachesim.sweep import cell_label, cell_overrides, hashable_label
 from repro.cachesim.systemstate import SystemTrace as RefSystemTrace
-from repro_torch.cachesim import (RunReport, SimConfig, SimResult,
-                                  Simulator, SystemTrace, get_trace,
-                                  run_cells, run_policies)
+from repro_torch.cachesim import (GOLDEN_SCENARIOS, RunReport, SimConfig,
+                                  SimResult, Simulator, SystemTrace,
+                                  get_scenario, get_trace, run_cells,
+                                  run_policies)
+from repro_torch.cachesim.sweep import (cell_label, cell_overrides,
+                                        hashable_label)
 from repro_torch.kernels.subsetdp import ref as subsetdp_ref
 
 GOLDEN_DIR = Path(__file__).parent / "golden"
@@ -43,13 +44,8 @@ RESULT_FIELDS = tuple(f.name for f in dataclasses.fields(SimResult))
 POLICIES = ("fna", "fno", "pi", "fna_cal")
 
 
-def _port_cfg(ref_cfg) -> SimConfig:
-    """The port's SimConfig with every field of a reference one."""
-    return SimConfig(**dataclasses.asdict(ref_cfg))
-
-
 def _golden_cells(name):
-    """(scenario, payload, [(trace name, trace, label, ref cfg)])."""
+    """(scenario, payload, [(trace name, trace, label, cfg)])."""
     sc = get_scenario(name)
     payload = json.loads((GOLDEN_DIR / f"{name}.json").read_text())
     traces, values = sc.golden_grid()
@@ -81,9 +77,8 @@ def test_port_fast_engine_matches_golden(name):
     results = {}
     for tname in dict.fromkeys(t for t, *_ in cells):
         groups = {}                 # one shared sweep per system key
-        for t, trace, label, ref_cfg in cells:
+        for t, trace, label, cfg in cells:
             if t == tname:
-                cfg = _port_cfg(ref_cfg)
                 groups.setdefault(SystemTrace.system_key(cfg), []).append(
                     (label, trace, cfg))
         for group in groups.values():
@@ -106,10 +101,10 @@ def test_port_reference_loop_matches_golden(name):
     per-request reference loop."""
     sc, payload, cells = _golden_cells(name)
     first = payload["cells"][0]
-    t, trace, label, ref_cfg = next(
+    t, trace, label, cfg = next(
         c for c in cells if c[0] == first["trace"] and
         c[2] == hashable_label(first["label"]))
-    cfg = dataclasses.replace(_port_cfg(ref_cfg), engine="reference")
+    cfg = dataclasses.replace(cfg, engine="reference")
     out = run_policies(trace, cfg, sc.policies, device="cpu")
     for cell in payload["cells"]:
         if cell["trace"] == t and hashable_label(cell["label"]) == label:
@@ -179,9 +174,9 @@ def test_replay_on_reference_phase1_equals_reference_replay(alg):
     trace = get_trace("gradle", 8_000, seed=5)
     kw = _direct_cfg(alg)
     ref_st = RefSystemTrace.compute(RefSimulator(RefSimConfig(**kw)), trace)
-    st = SystemTrace.from_reference_arrays(
-        ref_st.to_arrays(), SystemTrace.system_key(SimConfig(**kw)), "cpu",
-        trace)
+    st = SystemTrace.from_arrays(
+        ref_st.to_arrays(), SystemTrace.system_key(SimConfig(**kw)), trace,
+        "cpu")
     for p in POLICIES + ("hocs",) if alg == "ds_pgm" else POLICIES:
         pkw = dict(kw, policy=p)
         if p == "hocs":

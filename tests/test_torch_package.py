@@ -55,7 +55,12 @@ def test_port_imports_neither_jax_nor_reference():
                  "repro_torch.models.layers", "repro_torch.models.transformer",
                  "repro_torch.models.ssm", "repro_torch.models.mamba_lm",
                  "repro_torch.models.registry", "repro_torch.models.convert",
-                 "repro_torch.serving.engine"):
+                 "repro_torch.serving.engine",
+                 "repro_torch.cachesim.sweep", "repro_torch.cachesim.scenarios",
+                 "repro_torch.cachesim.store",
+                 "repro_torch.cachesim.tracefiles",
+                 "repro_torch.cachesim.topology",
+                 "repro_torch.tools.store_tool"):
         assert name in mods, name
     code = (
         "import importlib, sys\n"
@@ -83,6 +88,47 @@ def test_entry_points_raise_without_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ops.subset_dp([1.0, 2.0], np.full((3, 2), 0.5), 10.0)
     assert Simulator(cfg, device="cpu").device == torch.device("cpu")
+
+
+def test_grid_entry_points_raise_without_gpu(monkeypatch):
+    """The grid layer's entry points run on the card by default: without a
+    GPU they raise before any sweep; ``device="cpu"`` runs them."""
+    from repro_torch.cachesim import (TopoConfig, get_scenario, run_grid,
+                                      run_scenario, run_sweep,
+                                      run_topo_grid, run_topology,
+                                      scenario_grid)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    trace = np.arange(50) % 7
+    cfg = SimConfig(cache_size=100, update_interval=20)
+    topo = TopoConfig(base=cfg, kind="path", depth=2)
+    sc = get_scenario("fig4_gradle")
+    calls = {
+        "run_grid": lambda **kw: run_grid({"t": trace}, cfg,
+                                          "update_interval", (20,), **kw),
+        "run_sweep": lambda **kw: run_sweep({"t": trace}, cfg, (20,), **kw),
+        "run_scenario": lambda **kw: run_scenario(sc, n_requests=50, **kw),
+        "scenario_grid": lambda **kw: scenario_grid(sc, n_requests=50, **kw),
+        "run_topology": lambda **kw: run_topology(trace, topo, ("fna",),
+                                                  **kw),
+        "run_topo_grid": lambda **kw: run_topo_grid(
+            {"t": trace}, topo, "depth", (1, 2), ("fna",), **kw),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        assert call(device="cpu"), name
+
+
+def test_grid_mesh_other_than_none_raises():
+    from repro_torch.cachesim import run_cells, run_grid
+    trace = np.arange(50) % 7
+    cfg = SimConfig(cache_size=100, update_interval=20)
+    for call in (lambda: run_grid({"t": trace}, cfg, "update_interval",
+                                  (20,), device="cpu", mesh="sweep"),
+                 lambda: run_cells(trace, [cfg], ("fna",), device="cpu",
+                                   mesh="sweep")):
+        with pytest.raises(NotImplementedError, match="mesh"):
+            call()
 
 
 def test_bloom_entry_points_raise_without_gpu(monkeypatch):
