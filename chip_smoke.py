@@ -69,21 +69,39 @@ Phases, each failing the run on any mismatch:
      configuration on the card;
   8. the LM serving path: (d1) the flash-attention and SSD kernels against
      their plain versions on the card — flash at the serve shapes
-     [1, 24 | 512, 9/3, 64] and a long prefill [1, 2048, 9/3, 64], float32
-     (CUDA-core kernel) at 2e-5 and bf16 (wgmma kernel) at 3e-2 and, since
-     both keep p in float32 for PV, within one bf16 ulp in at most 1% of
-     the outputs; SSD at mamba2-370m's [1, 4096, 32, 64],
-     n = 128, chunk 256, and at the padded serve length 300, float32 at
-     2e-3 and bf16 at 3e-2; (d2) ``python -m repro_torch.launch.serve``
-     (no ``--replay``) at full published width, launch counts read around
-     each drive: smollm-135m ``--no-reduced --prefix-len 512 --requests
-     200`` (flash launches = 30 x prefills) and mamba2-370m ``--no-reduced
-     --prefix-len 300 --requests 100`` (SSD launches = 48 x prefills,
-     one per ``ssd_scan`` call, each call five kernels);
-     (d3) each model at full width in float32 with seeded weights: prefill
-     and greedy decode on the card (kernels) against the CPU (plain
-     versions); (d4) the two kernels' times beside their plain versions',
-     ``scaled_dot_product_attention``'s (flash) and their bounds.
+     [1, 24 | 512, 9/3, 64], a long prefill [1, 2048, 9/3, 64],
+     zamba2-7b's shared attention [1, 512, 32/32, 112] (head dim 112) and
+     a seamless-m4t-medium cross attention [1, 256 q, 16/16, 64] against
+     384 keys, each causal (the top-left mask where Sq != Sk) and not,
+     float32 (CUDA-core kernel) at 2e-5 and bf16 (wgmma kernel) at 3e-2
+     and, since both keep p in float32 for PV, within one bf16 ulp in at
+     most 1% of the outputs; SSD at mamba2-370m's [1, 4096, 32, 64],
+     n = 128, chunk 256, at its padded serve length 300, and at
+     zamba2-7b's [1, 512, 112, 64], n = 64, chunk 256, float32 at 2e-3 and
+     bf16 at 3e-2; (d2) ``python -m repro_torch.launch.serve`` (no
+     ``--replay``) at each published config (``--no-reduced``, uncut),
+     launch counts read around each drive and checked exactly per
+     prefill: smollm-135m ``--prefix-len 512`` (flash 30 a prefill),
+     mamba2-370m ``--prefix-len 300`` (SSD 48, one per ``ssd_scan`` call,
+     each call five kernels), granite-moe-3b-a800m ``--prefix-len 512``
+     (flash 32), internvl2-1b ``--prefix-len 64`` after its 1,024 patches
+     (flash 24), seamless-m4t-medium ``--prefix-len 256`` (flash 36: 12
+     encoder, 12 decoder self, 12 cross) and zamba2-7b ``--prefix-len
+     512`` (flash 13, one per shared application, SSD 81), each with its
+     prefill seconds, decode tokens per second (the tokens the launcher
+     reports decoded), weight-draw seconds and peak device memory; (d3)
+     each model at its published widths in float32 with seeded weights:
+     prefill and greedy decode on the card (kernels) against the CPU
+     (plain versions), logits and caches at every step — at full depth
+     except zamba2-7b (12 of 81 Mamba blocks: 2 shared applications, both
+     shared blocks) and granite-moe-3b-a800m (8 of 32 layers), cut to
+     spare the CPU's float32 time and the host's memory; granite's card
+     routings are held to the CPU's (the same experts for every token
+     outside a 1e-5 relative near-tie, and the CPU's experts inside it);
+     (d4) the two kernels' times at every main-path shape beside their
+     plain versions', ``scaled_dot_product_attention``'s (flash) and
+     their bounds, each flash shape first held against the plain version
+     in bf16 as in (d1).
 
 TF32 is off for matrix products (``torch.backends.cuda.matmul``, the
 default) and for cuDNN (``torch.backends.cudnn``, on by default), so that
@@ -98,6 +116,7 @@ more than once on its path also lists each launch's time and bound under
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -996,15 +1015,22 @@ def phase_topology(dev, card: str) -> None:
 # the LM serving path (flash attention and the SSD scan)
 # ---------------------------------------------------------------------------
 
-#: flash kernel checks: (name, B, S, Hq, Hkv, D) — the serve shapes of
-#: smollm-135m (prefix 24, the launcher's default, and 512) and a long
-#: prefill; causal (the prefill) and non-causal
-FLASH_SHAPES = (("serve24", 1, 24, 9, 3, 64), ("serve512", 1, 512, 9, 3, 64),
-                ("long2048", 1, 2048, 9, 3, 64))
+#: flash kernel checks: (name, B, Sq, Sk, Hq, Hkv, D) — the serve shapes of
+#: smollm-135m (prefix 24, the launcher's default, and 512), a long
+#: prefill, zamba2-7b's shared attention at its serve length (D = 112) and
+#: a seamless-m4t-medium cross attention with more frames than tokens;
+#: each causal (the top-left mask where Sq != Sk) and non-causal
+FLASH_SHAPES = (("serve24", 1, 24, 24, 9, 3, 64),
+                ("serve512", 1, 512, 512, 9, 3, 64),
+                ("long2048", 1, 2048, 2048, 9, 3, 64),
+                ("zamba512", 1, 512, 512, 32, 32, 112),
+                ("cross256x384", 1, 256, 384, 16, 16, 64))
 #: SSD checks: (name, b, s, h, p, n, chunk) — mamba2-370m's widths at the
-#: padded serve length and at a 4096-token prefill
+#: padded serve length and at a 4096-token prefill, and zamba2-7b's at its
+#: serve length
 SSD_SHAPES = (("serve300", 1, 300, 32, 64, 128, 256),
-              ("long4096", 1, 4096, 32, 64, 128, 256))
+              ("long4096", 1, 4096, 32, 64, 128, 256),
+              ("zamba512", 1, 512, 112, 64, 64, 256))
 #: (dtype name, tolerance): float32 at the JAX kernel tests' gates (2e-5
 #: flash, 2e-3 SSD: summation order only); bf16 at 3e-2 (o, resp. y,
 #: rounded to bf16 from float32 values that differ in summation order)
@@ -1016,17 +1042,62 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 #: Rounding p to bf16 once makes about a third of them differ.
 FLASH_BF16_SHARE = 0.01
 SSD_TOL = {"float32": 2e-3, "bfloat16": 3e-2}
-#: the full-width serve drives: (arch, launcher flags, kernel)
-SERVE_DRIVES = (("smollm-135m", ["--prefix-len", "512", "--requests", "200"],
-                 "flash_attention"),
-                ("mamba2-370m", ["--prefix-len", "300", "--requests", "100"],
-                 "ssd_scan"))
-#: full-width float32 card vs CPU: prompt length and decode steps per
-#: model; logits within LOGIT_TOL (rtol and atol): float32 on both sides,
-#: cuBLAS and the CPU's BLAS sum in other orders across 30 or 48 layers
-LM_COMPARE = {"smollm-135m": 512, "mamba2-370m": 300}
+#: the full-width serve drives at the published configs: (arch, launcher
+#: flags, kernel launches a prefill).  Prefix lengths are multiples of 16
+#: (granite's ``moe_groups``); zamba2-7b's requests stay few because each
+#: cached prefix holds 149 MB of SSD state beside 28 GB of weights
+SERVE_DRIVES = (
+    ("smollm-135m", ["--prefix-len", "512", "--requests", "200"],
+     {"flash_attention": 30, "ssd_scan": 0}),
+    ("mamba2-370m", ["--prefix-len", "300", "--requests", "100"],
+     {"flash_attention": 0, "ssd_scan": 48}),
+    ("granite-moe-3b-a800m", ["--prefix-len", "512", "--requests", "64"],
+     {"flash_attention": 32, "ssd_scan": 0}),
+    ("internvl2-1b", ["--prefix-len", "64", "--requests", "64"],
+     {"flash_attention": 24, "ssd_scan": 0}),
+    ("seamless-m4t-medium", ["--prefix-len", "256", "--requests", "64"],
+     {"flash_attention": 36, "ssd_scan": 0}),
+    ("zamba2-7b", ["--prefix-len", "512", "--requests", "48"],
+     {"flash_attention": 13, "ssd_scan": 81}),
+)
+#: the flash launches of each drive's prefill, by shape: (path, B, Sq, Sk,
+#: Hq, Hkv, D, causal, launches a prefill) — internvl2-1b's prompt is its
+#: 1,024 patches and 64 tokens; seamless's frames are as long as its
+#: tokens in the launcher
+FLASH_PATHS = (
+    ("smollm-135m", 1, 512, 512, 9, 3, 64, True, 30),
+    ("granite-moe-3b-a800m", 1, 512, 512, 24, 8, 64, True, 32),
+    ("internvl2-1b", 1, 1088, 1088, 14, 2, 64, True, 24),
+    ("seamless-m4t-medium encoder", 1, 256, 256, 16, 16, 64, False, 12),
+    ("seamless-m4t-medium decoder self", 1, 256, 256, 16, 16, 64, True, 12),
+    ("seamless-m4t-medium decoder cross", 1, 256, 256, 16, 16, 64, False,
+     12),
+    ("zamba2-7b", 1, 512, 512, 32, 32, 112, True, 13))
+#: the SSD calls of each drive's prefill: (path, b, s, h, p, n, chunk,
+#: calls a prefill)
+SSD_PATHS = (("mamba2-370m", 1, 300, 32, 64, 128, 256, 48),
+             ("zamba2-7b", 1, 512, 112, 64, 64, 256, 81))
+#: full-width float32 card vs CPU: (prompt tokens, encoder frames, config
+#: overrides) per model.  Two depth cuts spare the CPU's float32 time and
+#: the host's memory: zamba2-7b keeps 12 of its 81 Mamba blocks (2 shared
+#: applications, so both shared blocks run), granite-moe-3b-a800m 8 of its
+#: 32 layers; every width is the published one and the other models run
+#: at full depth.  seamless's 384 frames against 256 tokens make its cross
+#: attention Sq != Sk on the card.
+LM_COMPARE = {"smollm-135m": (512, 0, {}), "mamba2-370m": (300, 0, {}),
+              "granite-moe-3b-a800m": (256, 0, {"n_layers": 8}),
+              "internvl2-1b": (64, 0, {}),
+              "seamless-m4t-medium": (256, 384, {}),
+              "zamba2-7b": (512, 0, {"n_layers": 12})}
 LM_DECODE_STEPS = 8
+#: logits and caches within LOGIT_TOL (rtol and atol): float32 on both
+#: sides, cuBLAS and the CPU's BLAS sum in other orders across the layers
 LOGIT_TOL = 2e-3
+#: MoE routing: card and CPU router products differ by ~1e-6 relative
+#: in float32, so where a token's k-th and (k+1)-th router probabilities
+#: lie within this relative gap on the CPU the card may choose another
+#: expert; outside it the card must choose the CPU's experts
+ROUTE_DEAD_BAND = 1e-5
 
 
 def _err(got, want, tol: float):
@@ -1049,11 +1120,11 @@ def _bf16_ulp_close(got, want):
             bool((diff <= torch.clamp(ulp, min=2.0 ** -9)).all()))
 
 
-def _flash_inputs(b, s, hq, hkv, d, dtype, dev, seed):
+def _flash_inputs(b, sq, sk, hq, hkv, d, dtype, dev, seed):
     import torch
     g = torch.Generator(dev).manual_seed(seed)
     return [torch.randn(shape, generator=g, device=dev).to(dtype)
-            for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d))]
+            for shape in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d))]
 
 
 def _ssd_inputs(b, s, h, p, n, dtype, dev, seed):
@@ -1073,15 +1144,15 @@ def _ssd_inputs(b, s, h, p, n, dtype, dev, seed):
 def phase_lm_kernel_checks(dev) -> dict:
     """(d1) Each LM kernel against its plain version on the card
     (comparison launches; they do not count towards the main path).
-    Returns the largest error per kernel at the main path's type."""
+    Returns the largest error per kernel at the main path's type (bf16)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd
     errs = {"flash_attention": 0.0, "ssd_scan": 0.0}
-    for name, b, s, hq, hkv, d in FLASH_SHAPES:
+    for name, b, sq, sk, hq, hkv, d in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             tol = FLASH_TOL[str(dtype)[6:]]
-            q, k, v = _flash_inputs(b, s, hq, hkv, d, dtype, dev, s)
+            q, k, v = _flash_inputs(b, sq, sk, hq, hkv, d, dtype, dev, sq)
             for causal in (True, False):
                 got = fa.flash_attention(q, k, v, causal=causal)
                 sync()
@@ -1098,11 +1169,11 @@ def phase_lm_kernel_checks(dev) -> dict:
                           f"{in_ulp}")
                     extra = (f"; {share:.3%} of outputs differ, all within "
                              f"one bf16 ulp (limit {FLASH_BF16_SHARE:.0%})")
-                    if causal and name == "serve512":
-                        errs["flash_attention"] = err
-                print(f"[lm kernel] flash {name} {str(dtype)[6:]} causal="
-                      f"{causal}: max |kernel - plain| {err!r} (tol {tol})"
-                      f"{extra}")
+                    errs["flash_attention"] = max(errs["flash_attention"],
+                                                  err)
+                print(f"[lm kernel] flash {name} [{b}, {sq} x {sk}, {hq}/"
+                      f"{hkv}, {d}] {str(dtype)[6:]} causal={causal}: max "
+                      f"|kernel - plain| {err!r} (tol {tol}){extra}")
     for name, b, s, h, p, n, chunk in SSD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             tol = SSD_TOL[str(dtype)[6:]]
@@ -1119,40 +1190,58 @@ def phase_lm_kernel_checks(dev) -> dict:
                 serr, sok = _err(st, st_r, SSD_TOL["float32"])
                 check(ok and sok, f"ssd {name} {dtype}: kernel != plain "
                                   f"(y {err}, state {serr})")
-                if dtype == torch.bfloat16 and init is None and \
-                        name == "serve300":
-                    errs["ssd_scan"] = err
-                print(f"[lm kernel] ssd {name} {str(dtype)[6:]} initial_"
-                      f"state={init is not None}: max |kernel - plain| y "
-                      f"{err!r}, state {serr!r} (tol {tol})")
+                if dtype == torch.bfloat16 and init is None:
+                    errs["ssd_scan"] = max(errs["ssd_scan"], err)
+                print(f"[lm kernel] ssd {name} [{b}, {s}, {h}, {p}] n={n} "
+                      f"{str(dtype)[6:]} initial_state={init is not None}: "
+                      f"max |kernel - plain| y {err!r}, state {serr!r} (tol "
+                      f"{tol})")
     return errs
 
 
 def _serve_line(text: str) -> dict:
     import re
     last = [ln for ln in text.splitlines() if "policy=" in ln][-1]
-    out = {k: float(re.search(rf"\b{k}=([0-9.,]+)", last).group(1)
-                    .replace(",", ""))
-           for k in ("requests", "hit", "prefills", "tok/s", "wall")}
-    out["prefill_s"] = float(re.search(r"\(prefill ([0-9.]+)s\)",
-                                       last).group(1))
+    out = {"prefills": int(re.search(r"\bprefills=(\d+)", last).group(1))}
+    drawn = re.search(r"\[serve\] weights arch=\S+ params=(\d+) drawn on "
+                      r"(\w+) in ([0-9.]+)s", text)
+    out["params"], out["draw_s"] = int(drawn.group(1)), float(drawn.group(3))
+    decoded = re.search(r"\[serve\] decoded tokens=(\d+) in ([0-9.]+)s "
+                        r"\(prefill ([0-9.]+)s\)", text)
+    out["tokens"], out["prefill_s"] = (int(decoded.group(1)),
+                                       float(decoded.group(3)))
+    out["decode_s"] = float(decoded.group(2)) - out["prefill_s"]
     return out
 
 
+def host_draw_ns(n: int = 50_000_000) -> float:
+    """Host nanoseconds per truncated-normal float32 value, as
+    ``models.layers.dense_init`` draws them with a CPU generator."""
+    import torch
+    w = torch.empty(n)
+    t0 = time.perf_counter()
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                generator=torch.Generator().manual_seed(0))
+    return (time.perf_counter() - t0) / n * 1e9
+
+
 def phase_lm_serve(card: str) -> dict:
-    """(d2) The serving launcher at full width on the card, each drive's
-    kernel launches read around it; returns launches per kernel."""
+    """(d2) The serving launcher at each published config on the card,
+    kernel launches read around each drive and checked exactly against
+    the per-prefill counts; returns {arch: (prefills, launches)}."""
     import contextlib
+    import gc
     import io
-    from repro_torch.configs import get_config
+    import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd
     from repro_torch.launch.serve import main as serve_main
-    launches = {}
-    for arch, flags, kernel in SERVE_DRIVES:
+    out = {}
+    for arch, flags, per_prefill in SERVE_DRIVES:
         argv = ["--arch", arch, "--no-reduced", "--device", "cuda"] + flags
         fa.reset_launches()
         ssd.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -1161,18 +1250,30 @@ def phase_lm_serve(card: str) -> dict:
         counts = {**fa.LAUNCHES, **ssd.LAUNCHES}
         print(buf.getvalue(), end="")
         check(rc == 0, f"serve {arch} exited {rc}")
-        stats = _serve_line(buf.getvalue())
-        n_layers = get_config(arch).n_layers
-        want = n_layers * int(stats["prefills"])
-        print(f"[lm serve] {arch} full width: {json.dumps(counts)} kernel "
-              f"launches for {int(stats['prefills'])} prefills x "
-              f"{n_layers} layers; {secs:.3f} s in all ({card})")
-        check(stats["prefills"] > 0 and counts[kernel] == want,
-              f"{arch}: {counts[kernel]} {kernel} launches, expected {want}")
-        check(sum(counts.values()) == want,
-              f"{arch}: launched a kernel of the other model family")
-        launches[kernel] = counts[kernel]
-    return launches
+        st = _serve_line(buf.getvalue())
+        n = st["prefills"]
+        want = {k: v * n for k, v in per_prefill.items()}
+        tokens, decode_s = st["tokens"], st["decode_s"]
+        print(f"[lm serve] {arch} published config ({st['params']} "
+              f"parameters, drawn on the card in {st['draw_s']} s): {n} "
+              f"prefills in {st['prefill_s']} s ({st['prefill_s'] / n:.4f} s "
+              f"each); decode {tokens} tokens in {decode_s:.1f} s = "
+              f"{tokens / decode_s:.2f} tok/s; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; kernel "
+              f"launches {json.dumps(counts)} = {json.dumps(per_prefill)} "
+              f"x {n} prefills; {secs:.3f} s in all ({card})")
+        check(n > 0 and counts == want,
+              f"{arch}: kernel launches {counts}, expected {want}")
+        out[arch] = (n, counts, st["params"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    ns = host_draw_ns()
+    big = max(p for _, _, p in out.values())
+    print(f"[lm serve] the host CPU draws a truncated-normal float32 value in "
+          f"{ns:.2f} ns (5e7 drawn): the largest drive's {big} weights would "
+          f"take {big * ns / 1e9:.1f} s there; the launcher draws them on the "
+          f"card ({card})")
+    return out
 
 
 def _to_device(tree, dev):
@@ -1183,30 +1284,88 @@ def _to_device(tree, dev):
     return tree.to(dev)
 
 
+@contextlib.contextmanager
+def _routes_held():
+    """While open, each CPU MoE routing queues its expert choice, and each
+    card routing (the same calls in the same order) is held to it: every
+    token's expert set on the card must equal the CPU's unless the CPU's
+    relative gap between the token's k-th and (k+1)-th router probability
+    lies inside ``ROUTE_DEAD_BAND``.  Such a token then takes the CPU's
+    experts, weighted by the card's own probabilities, so that card and
+    CPU logits stay comparable at every step.  Yields the tally: routings
+    held, the smallest CPU gap, the tokens that took the CPU's choice."""
+    import torch
+    from repro_torch.models import layers
+    orig, queue = layers.moe_route, []
+    tally = {"routings": 0, "min_gap": float("inf"), "in_band": 0}
+
+    def probs(p, x, cfg):
+        logits = x.float() @ p["router"].float()
+        logits[..., cfg.n_experts:] = -1e30
+        return torch.softmax(logits, -1)
+
+    def held(p, x, cfg):
+        topw, topi = orig(p, x, cfg)
+        if x.device.type == "cpu":
+            top = probs(p, x, cfg).topk(cfg.topk + 1, -1).values
+            gap = (top[..., -2] - top[..., -1]) / top[..., -2]
+            tally["min_gap"] = min(tally["min_gap"], float(gap.min()))
+            queue.append((topi, gap))
+            return topw, topi
+        want, gap = queue.pop(0)
+        tally["routings"] += 1
+        differ = (topi.sort(-1).values.cpu()
+                  != want.sort(-1).values).any(-1)
+        check(not bool((differ & (gap >= ROUTE_DEAD_BAND)).any()),
+              f"MoE routing {tally['routings']}: the card chose other "
+              f"experts than the CPU outside the dead-band")
+        if not bool(differ.any()):
+            return topw, topi
+        tally["in_band"] += int(differ.sum())
+        idx = want.to(x.device)
+        w = probs(p, x, cfg).gather(-1, idx)
+        return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), idx
+
+    layers.moe_route = held
+    try:
+        yield tally
+    finally:
+        layers.moe_route = orig
+    check(not queue, f"{len(queue)} CPU MoE routings had no card routing")
+
+
 def _lm_compare(arch: str, dev, card: str) -> None:
-    """(d3) Full width, float32, seeded weights: prefill logits and the
-    cache, then greedy decode on the CPU and the card fed the CPU's
-    tokens; the card's greedy choice must match the CPU's wherever the
-    CPU's top-2 gap exceeds the logit tolerance."""
-    import dataclasses as dc
+    """(d3) Published widths, float32, seeded weights (drawn on the card,
+    copied to the CPU): prefill logits and the cache, then greedy decode
+    on the CPU and the card fed the CPU's tokens, every step held to
+    ``LOGIT_TOL``; the card's greedy choice must match the CPU's wherever
+    the CPU's top-2 gap exceeds twice the logit tolerance.  An MoE model's
+    routings are held to the CPU's by ``_routes_held``."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import get_model, init_params
-    cfg = dc.replace(get_config(arch), dtype="float32")
+    s, n_frames, over = LM_COMPARE[arch]
+    cfg = dataclasses.replace(get_config(arch), dtype="float32", **over)
     model = get_model(cfg)
-    params = init_params(cfg, torch.Generator().manual_seed(7), "cpu")
-    params_card = _to_device(params, dev)
-    s = LM_COMPARE[arch]
-    toks = torch.as_tensor(np.random.default_rng(7).integers(
-        0, cfg.vocab, (1, s)))
-    kw = {} if cfg.family == "ssm" else {"max_len": s + LM_DECODE_STEPS}
-    with torch.no_grad():
+    params_card = init_params(cfg, torch.Generator(dev).manual_seed(7), dev)
+    params = _to_device(params_card, "cpu")
+    rng = np.random.default_rng(7)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (1, s)))}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.as_tensor(rng.standard_normal(
+            (1, cfg.n_patches, cfg.d_model), dtype=np.float32))
+    if cfg.family == "encdec":
+        batch["frames"] = torch.as_tensor(rng.standard_normal(
+            (1, n_frames, cfg.d_model), dtype=np.float32))
+    n = s + cfg.n_patches if cfg.family == "vlm" else s
+    kw = {} if cfg.family == "ssm" else {"max_len": n + LM_DECODE_STEPS}
+    with torch.no_grad(), _routes_held() as routes:
         t0 = time.perf_counter()
-        lg_c, cache_c = model.prefill(params, {"tokens": toks}, **kw)
+        lg_c, cache_c = model.prefill(params, batch, **kw)
         cpu_s = time.perf_counter() - t0
-        lg_g, cache_g = model.prefill(params_card, {"tokens": toks.to(dev)},
-                                      **kw)
+        lg_g, cache_g = model.prefill(
+            params_card, {k: v.to(dev) for k, v in batch.items()}, **kw)
         sync()
         worst, ok = _err(lg_g.cpu(), lg_c, LOGIT_TOL)
         for name, val in cache_c.items():
@@ -1231,11 +1390,19 @@ def _lm_compare(arch: str, dev, card: str) -> None:
                 check(float(top2[0] - top2[1]) <= 2 * LOGIT_TOL,
                       f"{arch}: greedy token differs outside a near-tie")
             tok = nxt
-    print(f"[lm compare] {arch} full width float32, prompt {s}: prefill + "
+    depth = (f"{cfg.n_layers} of {get_config(arch).n_layers} layers"
+             if over else "full depth")
+    route = (f"; {routes['routings']} MoE routings held to the CPU's, "
+             f"smallest relative gap {routes['min_gap']:.3e}, "
+             f"{routes['in_band']} tokens inside the dead-band "
+             f"{ROUTE_DEAD_BAND} took the CPU's experts"
+             if routes["routings"] else "")
+    print(f"[lm compare] {arch} published widths, {depth}, float32, prompt "
+          f"{n}{f' + {n_frames} frames' if n_frames else ''}: prefill + "
           f"{LM_DECODE_STEPS} greedy decode steps, max |card - CPU| logit "
           f"{worst!r} (tol {LOGIT_TOL}), greedy tokens equal in "
           f"{LM_DECODE_STEPS - flips} of {LM_DECODE_STEPS} steps (near-tie "
-          f"flips allowed); CPU prefill {cpu_s:.3f} s ({card})")
+          f"flips allowed){route}; CPU prefill {cpu_s:.3f} s ({card})")
 
 
 def flash_work(b, sq, sk, hq, hkv, d, causal: bool, elem: int):
@@ -1274,87 +1441,137 @@ def _kernel_name(key: str) -> str:
     return found.group(1) if found else key[:40]
 
 
-def phase_lm_times(dev, launches: dict, errs: dict, card: str):
-    """(d4) Kernel, plain version and (flash) SDPA times at the main
-    path's shapes (bf16: flash [1, 512, 9/3, 64] causal, SSD [1, 300, 32,
-    64] chunk 256) and at the long shapes; returns the two records.  The
-    times are device times (``device_ms``).  The flash kernel and SDPA are
-    timed in turns (SDPA, kernel, kernel, SDPA), the better of two each."""
+def _time_flash(name, b, sq, sk, hq, hkv, d, causal, dev, card) -> dict:
+    """bf16 flash at one shape: first the kernel against its plain version
+    on these inputs (3e-2, and the one-ulp share check of (d1)), then the
+    kernel and SDPA in turns (SDPA, kernel, kernel, SDPA; the better of
+    two each), the plain version, the bound.  ``err`` is the check's
+    largest |kernel - plain|."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
+    q, k, v = _flash_inputs(b, sq, sk, hq, hkv, d, torch.bfloat16, dev,
+                            sq + d)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    kern = lambda: fa.flash_attention(q, k, v, causal=causal)  # noqa: E731
+    plain = lambda: fa.flash_attention_ref(q, k, v,  # noqa: E731
+                                           causal=causal)
+    got = kern()
+    sync()
+    want = plain()
+    err, ok = _err(got, want, FLASH_TOL["bfloat16"])
+    share, in_ulp = _bf16_ulp_close(got, want)
+    mask = "causal" if causal else "non-causal"
+    check(ok and in_ulp and share <= FLASH_BF16_SHARE,
+          f"flash {name} bf16 {mask}: kernel != plain (max |err| {err}, "
+          f"{share:.2%} of outputs differ, within one ulp: {in_ulp})")
+    print(f"[lm kernel] flash {name} [{b}, {sq} x {sk}, {hq}/{hkv}, {d}] "
+          f"bfloat16 {mask}: max |kernel - plain| {err!r} (tol "
+          f"{FLASH_TOL['bfloat16']}); {share:.3%} of outputs differ, all "
+          f"within one bf16 ulp (limit {FLASH_BF16_SHARE:.0%})")
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=causal, enable_gqa=True)
+    lib1, ms1, ms2, lib2 = (device_ms(f, 50) for f in (sdpa, kern, kern,
+                                                       sdpa))
+    ms, lib_ms = min(ms1, ms2), min(lib1, lib2)
+    plain_ms = device_ms(plain, 5)
+    flops, nbytes = flash_work(b, sq, sk, hq, hkv, d, causal, 2)
+    bound_ms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    print(f"[times] flash_attention {name} bf16 {mask} [{b}, {sq} x {sk}, "
+          f"{hq}/{hkv}, {d}]: device time "
+          f"kernel {ms:.4f} ms ({ms1:.4f}, {ms2:.4f}), plain {plain_ms:.4f} "
+          f"ms, SDPA {lib_ms:.4f} ms ({lib1:.4f}, {lib2:.4f}); bound "
+          f"{bound_ms:.6f} ms ({by}; {flops} flops, {nbytes} bytes), "
+          f"{bound_ms / ms:.1%} of the bound reached ({card})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": lib_ms, "err": err}
+
+
+def _time_ssd(name, b, s, h, p, n, chunk, dev, card) -> dict:
+    """bf16 SSD at one shape: the kernel (five stages), the plain version,
+    the bound; the stages' device times from a profiler trace (log)."""
+    import torch
     from repro_torch.kernels import ssd
-    bf = torch.bfloat16
+    x, dt, A, B, C = _ssd_inputs(b, s, h, p, n, torch.bfloat16, dev, s)
+    kern = lambda: ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)  # noqa: E731
+    ms = device_ms(kern, 20)
+    stages = kernel_shares(kern, 20)
+    plain_ms = device_ms(lambda: ssd.ssd_scan_ref(x, dt, A, B, C,
+                                                  chunk=chunk), 3)
+    tc_flops, flops, nbytes = ssd_work(b, s, h, p, n, chunk, 2)
+    # C.B^T at the bf16 tensor-core peak, the rest at the float32 one: in
+    # float32-peak-equivalent operations
+    eq = flops + tc_flops * PEAK_FP32_FLOPS / PEAK_BF16_FLOPS
+    bound_ms, by = bound(eq, nbytes, PEAK_FP32_FLOPS)
+    print(f"[times] ssd_scan {name} bf16 [{b}, {s}, {h}, {p}] n={n} "
+          f"chunk={chunk}: device time kernel {ms:.4f} ms (five kernels), "
+          f"plain {plain_ms:.4f} ms; bound {bound_ms:.6f} ms ({by}; "
+          f"{tc_flops} bf16 tensor-core flops, {flops} float32 flops, "
+          f"{nbytes} bytes), {bound_ms / ms:.1%} of the bound reached "
+          f"({card})")
+    print(f"[times] ssd_scan {name} stages (device ms a launch, profiler "
+          f"trace): " + ", ".join(f"{_kernel_name(k)} {v:.4f}"
+                                  for k, v in stages.items()))
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "library_ms": None}
+
+
+def phase_lm_times(dev, serve: dict, errs: dict, card: str):
+    """(d4) Kernel, plain version and (flash) SDPA times at each main-path
+    shape, beside each one's bound, then at the long and cross shapes (log
+    only); returns the two records.  A record's ``per_launch`` holds one
+    launch at each main-path shape with that path's launch count; its
+    ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` sum them.  Each
+    flash shape is first held against the plain version in bf16, and the
+    record's ``max_abs_err`` is the largest bf16 error of (d1) and (d4)."""
+    flash, ssd_entries = [], []
+    for path, b, sq, sk, hq, hkv, d, causal, per in FLASH_PATHS:
+        n = serve[path.split()[0]][0]
+        t = _time_flash(path, b, sq, sk, hq, hkv, d, causal, dev, card)
+        errs["flash_attention"] = max(errs["flash_attention"], t.pop("err"))
+        flash.append({"launch": f"{path} [{b}, {sq} x {sk}, {hq}/{hkv}, {d}]"
+                                f" {'causal' if causal else 'non-causal'}",
+                      "launches": per * n, **t})
+    for name, b, sq, sk, hq, hkv, d in FLASH_SHAPES:
+        if name in ("long2048", "cross256x384"):
+            t = _time_flash(name, b, sq, sk, hq, hkv, d, name == "long2048",
+                            dev, card)
+            errs["flash_attention"] = max(errs["flash_attention"], t["err"])
+    for path, b, s, h, p, n_, chunk, per in SSD_PATHS:
+        t = _time_ssd(path, b, s, h, p, n_, chunk, dev, card)
+        ssd_entries.append({"launch": f"{path} [{b}, {s}, {h}, {p}] n={n_} "
+                                      f"chunk={chunk}",
+                            "launches": per * serve[path][0], **t})
+    _time_ssd("long4096", *SSD_SHAPES[1][1:], dev, card)
     records = []
-    for name, b, s, hq, hkv, d in FLASH_SHAPES[1:]:
-        q, k, v = _flash_inputs(b, s, hq, hkv, d, bf, dev, s)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        kern = lambda: fa.flash_attention(q, k, v)  # noqa: E731
-        plain = lambda: fa.flash_attention_ref(q, k, v)  # noqa: E731
-        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-        # in turns: SDPA, kernel, kernel, SDPA
-        lib1, ms1, ms2, lib2 = (device_ms(f, 50) for f in (sdpa, kern, kern,
-                                                           sdpa))
-        ms, lib_ms = min(ms1, ms2), min(lib1, lib2)
-        plain_ms = device_ms(plain, 5)
-        flops, nbytes = flash_work(b, s, s, hq, hkv, d, True, 2)
-        bound_ms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-        print(f"[times] flash_attention {name} bf16 causal [{b}, {s}, {hq}/"
-              f"{hkv}, {d}]: device time kernel {ms:.4f} ms ({ms1:.4f}, "
-              f"{ms2:.4f}), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
-              f"({lib1:.4f}, {lib2:.4f}); bound {bound_ms:.6f} ms ({by}; "
-              f"{flops} flops, {nbytes} bytes) ({card})")
-        if name == "serve512":
-            records.append({
-                "name": "flash_attention.flash_attention", "route": "cuda",
-                "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                          "flash_wgmma.cu",
-                "replaces": "src/repro/kernels/flash_attention/flash.py:32",
-                "launches": launches["flash_attention"],
-                "max_abs_err": errs["flash_attention"], "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-                "library_ms": lib_ms})
-    for name, b, s, h, p, n, chunk in SSD_SHAPES:
-        x, dt, A, B, C = _ssd_inputs(b, s, h, p, n, bf, dev, s)
-        kern = lambda: ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)  # noqa: E731
-        ms = device_ms(kern, 20)
-        stages = kernel_shares(kern, 20)
-        plain_ms = device_ms(lambda: ssd.ssd_scan_ref(x, dt, A, B, C,
-                                                      chunk=chunk), 3)
-        tc_flops, flops, nbytes = ssd_work(b, s, h, p, n, chunk, 2)
-        # C.B^T at the bf16 tensor-core peak, the rest at the float32 one:
-        # in float32-peak-equivalent operations
-        eq = flops + tc_flops * PEAK_FP32_FLOPS / PEAK_BF16_FLOPS
-        bound_ms, by = bound(eq, nbytes, PEAK_FP32_FLOPS)
-        print(f"[times] ssd_scan {name} bf16 [{b}, {s}, {h}, {p}] n={n} "
-              f"chunk={chunk}: device time kernel {ms:.4f} ms (five "
-              f"kernels), plain {plain_ms:.4f} ms; bound {bound_ms:.6f} ms ({by}; "
-              f"{tc_flops} bf16 tensor-core flops, {flops} float32 flops, "
-              f"{nbytes} bytes) ({card})")
-        print(f"[times] ssd_scan {name} stages (device ms a launch, "
-              f"profiler trace): " +
-              ", ".join(f"{_kernel_name(k)} {v:.4f}"
-                        for k, v in stages.items()))
-        if name == "serve300":
-            records.append({
-                "name": "ssd.ssd_scan", "route": "cuda",
-                "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
-                "replaces": "src/repro/kernels/ssd/ssd.py:28",
-                "launches": launches["ssd_scan"],
-                "max_abs_err": errs["ssd_scan"], "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-                "library_ms": None})
+    for name, kernel, entries, source, replaces in (
+            ("flash_attention.flash_attention", "flash_attention", flash,
+             "flash_attention/csrc/flash_wgmma.cu",
+             "flash_attention/flash.py:32"),
+            ("ssd.ssd_scan", "ssd_scan", ssd_entries, "ssd/csrc/ssd.cu",
+             "ssd/ssd.py:28")):
+        launches = sum(e["launches"] for e in entries)
+        on_path = sum(c[kernel] for _, c, _ in serve.values())
+        check(launches == on_path, f"{kernel}: per-path launches {launches} "
+                                   f"!= {on_path} on the drives")
+        total = _summed(f"{kernel}, one launch at each main-path shape",
+                        entries, card)
+        libs = [e["library_ms"] for e in entries]
+        records.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": launches, "max_abs_err": errs[kernel],
+            "library_ms": None if None in libs else sum(libs), **total})
     return records
 
 
 def phase_lm(dev, card: str):
     """Phase 8: the LM serving path; returns the two kernel records."""
     errs = phase_lm_kernel_checks(dev)
-    launches = phase_lm_serve(card)
+    serve = phase_lm_serve(card)
     for arch in LM_COMPARE:
         _lm_compare(arch, dev, card)
-    return phase_lm_times(dev, launches, errs, card)
+    return phase_lm_times(dev, serve, errs, card)
 
 
 def main() -> int:

@@ -168,6 +168,7 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
     case 16: return launch<16>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     case 32: return launch<32>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     case 64: return launch<64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
+    case 112: return launch<112>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     case 128: return launch<128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     default: return cudaErrorInvalidValue;
   }

@@ -40,7 +40,13 @@
 //  - Loads: TMA over the model layout [B, S, H, D] as a 4-D tensor map
 //    (box: 64 rows of one head), swizzled to match the wgmma descriptors
 //    (128-byte rows; 64- and 32-byte rows at D = 32, 16; D = 128 as two
-//    64-column panels).  Rows past S are zero-filled by TMA.  Q once, then
+//    64-column panels).  Rows past S are zero-filled by TMA.  D = 112
+//    (zamba2-7b's shared attention) is no whole number of swizzle spans:
+//    it keeps D = 128's two panels in shared memory and registers, while
+//    the tensor maps span the real 112 columns, so TMA zero-fills columns
+//    112-127 of every Q, K and V tile and clips them from the store of o.
+//    Q.K^T runs its 7 k16 steps over the real columns only; P.V computes
+//    the 16 zero columns as well (128/112 of its work).  Q once, then
 //    K and V through a ring of STAGES tiles a warpgroup, each with an
 //    mbarrier; a stage is refilled as soon as its warpgroup is done with
 //    it.  One thread prefetches the tensor maps, sets up the barriers and
@@ -66,13 +72,16 @@ constexpr float MASKED = -1e30f;
 
 template <int D>
 struct Cfg {
+  // width kept in shared memory and registers: D, or D rounded up to whole
+  // 64-column panels (128 at D = 112; TMA zero-fills the columns past D)
+  static constexpr int DP = D <= 64 ? D : (D + 63) / 64 * 64;
   static constexpr int PANEL = D < 64 ? D : 64;              // columns per panel
-  static constexpr int NPANEL = D / PANEL;                   // 2 at D = 128
+  static constexpr int NPANEL = DP / PANEL;                  // 2 at D = 112, 128
   static constexpr int ROW_BYTES = PANEL * 2;                // swizzle span
   static constexpr int Q_PANEL = BM * ROW_BYTES;             // a Q panel
-  static constexpr int Q_BYTES = NPANEL * Q_PANEL;           // BM rows x D
+  static constexpr int Q_BYTES = NPANEL * Q_PANEL;           // BM rows x DP
   static constexpr int KV_PANEL = BN * ROW_BYTES;            // a K or V panel
-  static constexpr int KV_BYTES = NPANEL * KV_PANEL;         // BN rows x D
+  static constexpr int KV_BYTES = NPANEL * KV_PANEL;         // BN rows x DP
   static constexpr int KPP = PANEL / 16;                     // k16 steps a panel
   // wgmma descriptor layout: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte swizzle
   static constexpr uint64_t LAYOUT = ROW_BYTES == 128 ? 1 : ROW_BYTES == 64 ? 2 : 3;
@@ -433,7 +442,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   // warpgroups 1.. hand (m, l, acc) to warpgroup 0 through shared memory
   // (the K/V stages, all consumed); thread wt of each holds the same rows
   // and columns
-  constexpr int SLOT = (D / 2 + 4) * 128;  // floats a warpgroup hands over
+  constexpr int DH = C::DP / 2;             // accumulator registers a thread
+  constexpr int SLOT = (DH + 4) * 128;      // floats a warpgroup hands over
   float* xfer = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)) +
                                          C::Q_BYTES);
   __syncthreads();
@@ -444,18 +454,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int j = 0; j < C::PANEL / 2; ++j)
         x[(p * (C::PANEL / 2) + j) * 128] = oacc[p][j];
-    x[(D / 2 + 0) * 128] = ma;
-    x[(D / 2 + 1) * 128] = mb;
-    x[(D / 2 + 2) * 128] = la;
-    x[(D / 2 + 3) * 128] = lb;
+    x[(DH + 0) * 128] = ma;
+    x[(DH + 1) * 128] = mb;
+    x[(DH + 2) * 128] = la;
+    x[(DH + 3) * 128] = lb;
   }
   __syncthreads();
   if (wg > 0) return;
   float ma2 = ma, mb2 = mb;
 #pragma unroll
   for (int w = 1; w < WGS; ++w) {
-    ma2 = fmaxf(ma2, xfer[(w - 1) * SLOT + (D / 2 + 0) * 128 + wt]);
-    mb2 = fmaxf(mb2, xfer[(w - 1) * SLOT + (D / 2 + 1) * 128 + wt]);
+    ma2 = fmaxf(ma2, xfer[(w - 1) * SLOT + (DH + 0) * 128 + wt]);
+    mb2 = fmaxf(mb2, xfer[(w - 1) * SLOT + (DH + 1) * 128 + wt]);
   }
   float fa = ex2((ma - ma2) * c), fb = ex2((mb - mb2) * c);
   la *= fa;
@@ -467,10 +477,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
   for (int w = 1; w < WGS; ++w) {
     const float* x = xfer + (w - 1) * SLOT + wt;
-    fa = ex2((x[(D / 2 + 0) * 128] - ma2) * c);
-    fb = ex2((x[(D / 2 + 1) * 128] - mb2) * c);
-    la += x[(D / 2 + 2) * 128] * fa;
-    lb += x[(D / 2 + 3) * 128] * fb;
+    fa = ex2((x[(DH + 0) * 128] - ma2) * c);
+    fb = ex2((x[(DH + 1) * 128] - mb2) * c);
+    la += x[(DH + 2) * 128] * fa;
+    lb += x[(DH + 3) * 128] * fb;
 #pragma unroll
     for (int p = 0; p < C::NPANEL; ++p)
 #pragma unroll
@@ -591,6 +601,7 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
     case 16: return launch<16>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     case 32: return launch<32>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     case 64: return launch<64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
+    case 112: return launch<112>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     case 128: return launch<128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     default: return cudaErrorInvalidValue;
   }

@@ -30,8 +30,9 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 #: kernel launches since the last ``reset_launches()``
 LAUNCHES = {"flash_attention": 0}
-#: head dims the kernel is instantiated for
-HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the kernel is instantiated for (112: zamba2-7b's shared
+#: attention, d 3584 over 32 heads)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
 

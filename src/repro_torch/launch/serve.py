@@ -8,10 +8,18 @@ drives the full data path on one device: route -> probe -> (hit: reuse
 the prefix KV | miss: a real prefill) -> decode -> place.  It runs on
 ``cuda`` unless ``--device cpu`` is given; ``--reduced`` (the default)
 takes the architecture's tiny same-family config, ``--no-reduced`` its
-published one.  The ``dense`` family (smollm-135m) prefills through the
-flash-attention kernel and the ``ssm`` family (mamba2-370m) through the
-SSD kernel; decode is plain torch.  The output lines are the JAX
-launcher's; the prefill seconds are taken after a device sync.
+published one.  Every family is served: ``dense``, ``moe`` and ``vlm``
+(smollm-135m, granite-moe-3b-a800m, qwen3-moe-30b-a3b, internvl2-1b) and
+``encdec`` (seamless-m4t-medium) prefill through the flash-attention
+kernel, ``ssm`` (mamba2-370m) through the SSD kernel, ``hybrid``
+(zamba2-7b) through both; decode is plain torch.  ``--kv-quant`` applies
+to dense, moe and vlm, as in the JAX launcher.  The output lines are the
+JAX launcher's, between a ``[serve] weights`` line (parameters, and the
+seconds it took to draw them) and a closing ``[serve] decoded`` line (the
+tokens decoded); the prefill seconds are taken after a device sync.  The
+weights are drawn from seed 0 on the serving device (``init_params``),
+so ``--device cpu`` and ``--device cuda`` serve different random
+weights; the routing statistics do not depend on them.
 
 ``--replay`` runs the concurrent-client router replay harness
 (``repro_torch.serving.replay``): N clients drive a scenario-defined
@@ -117,7 +125,16 @@ def _run_model(args) -> int:
         cfg = cfg.reduced()
     if args.kv_quant and cfg.family in ("dense", "moe", "vlm"):
         cfg = dataclasses.replace(cfg, kv_quant=True)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.time()
     engine = ServeEngine(cfg, device=dev)
+    sync()
+    print(f"[serve] weights arch={cfg.name} params={cfg.param_count()} "
+          f"drawn on {dev.type} in {time.time() - t0:.3f}s")
     rng = np.random.default_rng(args.seed)
     prefixes = [rng.integers(0, cfg.vocab, (1, args.prefix_len)).astype(np.int32)
                 for _ in range(256)]
@@ -129,10 +146,6 @@ def _run_model(args) -> int:
                          miss_penalty=args.miss_penalty, policy=args.policy)
     cluster = PrefixServeCluster(ccfg, seed=args.seed)
     max_len = args.prefix_len + args.decode_steps + 2
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
 
     t0 = time.time()
     prefill_s = 0.0
@@ -165,6 +178,8 @@ def _run_model(args) -> int:
           f"prefills={s.prefills} neg_probes={s.neg_probes} "
           f"tok/s={tokens_out / wall:,.0f} wall={wall:.1f}s "
           f"(prefill {prefill_s:.1f}s)")
+    print(f"[serve] decoded tokens={tokens_out} in {wall:.3f}s "
+          f"(prefill {prefill_s:.3f}s)")
     return 0
 
 

@@ -1,5 +1,6 @@
-"""The port's language models (dense GQA transformer and Mamba2) for the
-serving path; the other families wait (ROADMAP A8)."""
+"""The port's language models for the serving path: the GQA transformer
+(dense, moe, vlm), Mamba2 (ssm), the Zamba2 hybrid and the
+encoder-decoder (encdec)."""
 from repro_torch.models.convert import init_params, params_from_jax
 from repro_torch.models.registry import get_model, make_concrete_batch
 

@@ -3,12 +3,19 @@ drawn anew.
 
 ``params_from_jax(cfg, tree)`` takes the JAX package's parameter tree as
 nested dictionaries of NumPy arrays (``jax.tree.map(np.asarray,
-params)``) and returns the port's: the same names, with the stacked
-``layers`` [L, ...] (``src/repro/models/transformer.py:93``,
-``mamba_lm.py:40``) split into a list of per-layer dictionaries.
-``init_params(cfg, generator, device)`` draws the port's own random
-weights (the machine with the card has no JAX); they are drawn on the
-CPU, so one seed gives the same weights on every device.
+params)``) and returns the port's: the same names, with every stacked
+block list split into a list of per-block dictionaries — ``layers``
+[n_layers, ...] (``src/repro/models/transformer.py:93``,
+``mamba_lm.py:40``, ``hybrid.py:70``), the hybrid's ``shared``
+[n_shared, ...] (``hybrid.py:71``) and the encoder-decoder's
+``enc_layers`` [enc_layers, ...] and ``dec_layers`` [n_layers, ...]
+(``encdec.py:56,58``).  ``init_params(cfg, generator, device)`` draws the
+port's own random weights (the machine with the card has no JAX) on the
+generator's device: a generator on the card draws a 7e9-parameter model
+in seconds where the CPU takes minutes.  A given generator gives the same
+weights wherever they are placed; the default one (seed 0) lives on the
+target device, and the card's and the CPU's random streams differ, so
+the default weights on ``cpu`` and on ``cuda`` are not the same.
 """
 from __future__ import annotations
 
@@ -30,29 +37,43 @@ def _tree(fn, tree):
     return fn(tree)
 
 
+def _stacks(cfg: ModelConfig) -> Dict[str, int]:
+    """The JAX tree's stacked block lists and their lengths."""
+    return {"layers": cfg.n_layers, "shared": cfg.n_shared,
+            "enc_layers": cfg.enc_layers, "dec_layers": cfg.n_layers}
+
+
 def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
                     device: DeviceLike = None) -> Dict[str, Any]:
     """The JAX parameter tree (NumPy leaves) as the port's parameters on
     ``device`` (``cuda`` unless asked; raises without a GPU)."""
     dev = resolve_device(device)
-    get_model(cfg)                       # families the port cannot run raise
+    get_model(cfg)                       # unknown families raise
 
     def leaf(a):
         return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
-    out = {k: _tree(leaf, v) for k, v in tree.items() if k != "layers"}
-    n = cfg.n_layers
-    out["layers"] = [_tree(lambda a, i=i: leaf(np.asarray(a)[i]),
-                           tree["layers"]) for i in range(n)]
+    stacks = _stacks(cfg)
+    out = {}
+    for k, v in tree.items():
+        if k in stacks:
+            out[k] = [_tree(lambda a, i=i: leaf(np.asarray(a)[i]), v)
+                      for i in range(stacks[k])]
+        else:
+            out[k] = _tree(leaf, v)
     return out
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None) -> Dict[str, Any]:
-    """Random weights of ``cfg``'s model, drawn on the CPU from
-    ``generator`` (seed 0 when absent) and placed on ``device``."""
+    """Random weights of ``cfg``'s model, drawn from ``generator`` on its
+    own device (seed 0 on ``device`` when absent, so the default weights
+    differ between devices) and placed on ``device`` (``cuda`` unless
+    asked)."""
     dev = resolve_device(device)
     gen = generator if generator is not None else \
-        torch.Generator().manual_seed(0)
+        torch.Generator(dev).manual_seed(0)
     params = get_model(cfg).init(gen)
-    return params if dev.type == "cpu" else _tree(lambda t: t.to(dev), params)
+    if gen.device.type == dev.type:
+        return params
+    return _tree(lambda t: t.to(dev), params)

@@ -1,0 +1,184 @@
+"""Encoder-decoder transformer LM in PyTorch — the port of the JAX
+package's ``repro.models.encdec`` (seamless-m4t-medium).
+
+The speech frontend is a stub, as in the JAX package: the encoder takes
+precomputed frame embeddings ``frames`` [B, Se, d], projects them
+(``frame_proj``), runs ``enc_layers`` bidirectional blocks and ends with
+``enc_norm``; the decoder's ``n_layers`` blocks each hold causal
+self-attention, cross-attention to the encoder states (no rotary on its
+q or k) and a SwiGLU MLP.
+
+Parameters are ``{"frame_proj", "enc_layers": [...], "embed",
+"dec_layers": [...], "enc_norm", "final_norm", "unembed"}``; the cache
+keeps the JAX layout: ``k``/``v`` [L, B, Smax, Hkv, D], the cross
+``ck``/``cv`` [L, B, Se, Hkv, D] and ``len``.  The prefill sends every
+attention through the flash-attention kernel: the encoder's
+self-attention (non-causal), the decoder's self-attention (causal) and
+its cross-attention (non-causal, Sq = the prompt, Sk = the frames), so
+``enc_layers + 2 * n_layers`` launches a prefill.  ``forward`` keeps the
+JAX package's plain attention in the decoder; decode is plain torch,
+its cross-attention over the whole of ``ck``/``cv``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import layers as L
+
+F32 = torch.float32
+Params = Dict[str, Any]
+
+
+class EncDecLM:
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.pdt = L.dtype_of(cfg.param_dtype)
+        self.cdt = L.dtype_of(cfg.dtype)
+
+    # ---------------- params ----------------
+    def init(self, gen: torch.Generator) -> Params:
+        """Random weights drawn from ``gen`` on its device."""
+        cfg = self.cfg
+        zeros = lambda: L.zeros(gen, (cfg.d_model,), self.pdt)  # noqa: E731
+        return {
+            "frame_proj": L.dense_init(gen, (cfg.d_model, cfg.d_model),
+                                       self.pdt),
+            "enc_layers": [{"attn": L.init_attn(gen, cfg, self.pdt),
+                            "mlp": L.init_mlp(gen, cfg, self.pdt),
+                            "ln1": zeros(), "ln2": zeros()}
+                           for _ in range(cfg.enc_layers)],
+            "embed": L.embed_init(gen, (cfg.vocab_padded, cfg.d_model),
+                                  self.pdt),
+            "dec_layers": [{"attn": L.init_attn(gen, cfg, self.pdt),
+                            "cross": L.init_attn(gen, cfg, self.pdt),
+                            "mlp": L.init_mlp(gen, cfg, self.pdt),
+                            "ln1": zeros(), "ln2": zeros(), "ln3": zeros()}
+                           for _ in range(cfg.n_layers)],
+            "enc_norm": zeros(),
+            "final_norm": zeros(),
+            "unembed": L.dense_init(gen, (cfg.d_model, cfg.vocab_padded),
+                                    self.pdt),
+        }
+
+    def _embed(self, params, tokens):
+        return params["embed"][tokens].to(self.cdt)
+
+    def _logits(self, params, x):
+        x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        return (x @ params["unembed"].to(self.cdt)).to(F32)
+
+    def _mlp(self, lp, x, ln: str):
+        return L.mlp_residual(lp["mlp"], lp[ln], x, self.cfg.norm_eps)
+
+    # ---------------- encoder ----------------
+    def encode(self, params, frames) -> torch.Tensor:
+        """Encoder states [B, Se, d] of ``frames`` [B, Se, d]; each layer's
+        bidirectional self-attention through the flash kernel."""
+        cfg = self.cfg
+        x = frames.to(self.cdt) @ params["frame_proj"].to(self.cdt)
+        se = x.shape[1]
+        positions = torch.arange(se, device=x.device)[None, :]
+        for lp in params["enc_layers"]:
+            o, _, _ = L.flash_attn(lp["attn"],
+                                   L.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                                   cfg, positions, causal=False)
+            x = self._mlp(lp, x + o, "ln2")
+        return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+    # ---------------- forward ----------------
+    def forward(self, params, batch) -> torch.Tensor:
+        """Full logits [B, S, V] (small inputs only; tests)."""
+        cfg = self.cfg
+        enc = self.encode(params, batch["frames"])
+        x = self._embed(params, batch["tokens"])
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        for lp in params["dec_layers"]:
+            x = x + L.attn_forward(lp["attn"],
+                                   L.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                                   cfg, positions, causal=True)
+            x = x + L.attn_forward(lp["cross"],
+                                   L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+                                   cfg, positions, causal=False,
+                                   kv_override=enc)
+            x = self._mlp(lp, x, "ln3")
+        return self._logits(params, x)
+
+    # ---------------- serve ----------------
+    def cache_spec(self, batch_size: int, max_len: int,
+                   enc_len: int) -> Dict[str, Any]:
+        """{name: (shape, dtype)} of the decode cache (``len`` an int)."""
+        cfg = self.cfg
+        tail = (cfg.n_kv_heads, cfg.head_dim)
+        kv = ((cfg.n_layers, batch_size, max_len) + tail, self.cdt)
+        ckv = ((cfg.n_layers, batch_size, enc_len) + tail, self.cdt)
+        return {"k": kv, "v": kv, "ck": ckv, "cv": ckv,
+                "len": ((), torch.int64)}
+
+    def init_cache(self, batch_size: int, max_len: int, enc_len: int,
+                   device: DeviceLike = None) -> Params:
+        """Zeroed decode cache on ``device`` (``cuda`` unless asked)."""
+        return L.zero_cache(self.cache_spec(batch_size, max_len, enc_len),
+                            resolve_device(device))
+
+    def prefill_cross(self, params, enc) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every decoder layer's cross K/V [L, B, Se, Hkv, D] of the
+        encoder states ``enc``."""
+        kvs = [L.cross_kv(lp["cross"], enc.to(self.cdt), self.cfg)
+               for lp in params["dec_layers"]]
+        return (torch.stack([k for k, _ in kvs]),
+                torch.stack([v for _, v in kvs]))
+
+    def prefill(self, params, batch, max_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Params]:
+        """Encoder pass, the cross K/V, then the decoder's prompt: last-token
+        logits [B, V] and the cache (self K/V padded to ``max_len``)."""
+        cfg = self.cfg
+        enc = self.encode(params, batch["frames"])
+        ck, cv = self.prefill_cross(params, enc)
+        x = self._embed(params, batch["tokens"])
+        s = x.shape[1]
+        positions = torch.arange(s, device=x.device)[None, :]
+        ks, vs = [], []
+        for lp, ckl, cvl in zip(params["dec_layers"], ck, cv):
+            o, k, v = L.flash_attn(lp["attn"],
+                                   L.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                                   cfg, positions, causal=True)
+            x = x + o
+            co, _, _ = L.flash_attn(lp["cross"],
+                                    L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+                                    cfg, None, causal=False, kv=(ckl, cvl))
+            x = self._mlp(lp, x + co, "ln3")
+            ks.append(k)
+            vs.append(v)
+        logits = self._logits(params, x[:, -1:])[:, 0]
+        k_all, v_all = L.stack_kv(ks, vs, max_len)
+        return logits, {"k": k_all, "v": v_all, "ck": ck, "cv": cv,
+                        "len": s}
+
+    def decode_step(self, params, cache, tokens) -> Tuple[torch.Tensor,
+                                                          Params]:
+        """tokens: [B] -> (logits [B, V], cache with ``len`` + 1).  The new
+        token's self K/V are written into the cache in place
+        (``ServeEngine.decode`` works on a copy); cross-attention reads the
+        whole of ``ck``/``cv``."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)[:, None]
+        clen = int(cache["len"])
+        b = x.shape[0]
+        for i, lp in enumerate(params["dec_layers"]):
+            hn = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+            x = x + L.attn_decode_forward(lp["attn"], hn, cfg, cache["k"][i],
+                                          cache["v"][i], clen)
+            hn2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+            q = (hn2 @ lp["cross"]["wq"].to(x.dtype)).reshape(
+                b, 1, cfg.n_heads, cfg.head_dim)
+            ck, cv = cache["ck"][i], cache["cv"][i]
+            co = L.attention_decode(q, ck.to(x.dtype), cv.to(x.dtype),
+                                    ck.shape[1])
+            x = x + co.reshape(b, 1, -1) @ lp["cross"]["wo"].to(x.dtype)
+            x = self._mlp(lp, x, "ln3")
+        return self._logits(params, x)[:, 0], {**cache, "len": clen + 1}

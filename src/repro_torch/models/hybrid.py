@@ -1,0 +1,188 @@
+"""Zamba2-style hybrid LM in PyTorch — the port of the JAX package's
+``repro.models.hybrid`` (zamba2-7b): a Mamba2 backbone with *shared*
+attention blocks.
+
+``cfg.n_layers`` Mamba2 blocks run in segments of ``cfg.shared_every``;
+after each *full* segment one of ``cfg.n_shared`` alternating shared
+transformer blocks (full attention and a SwiGLU MLP, weights reused) is
+applied: block ``i % n_shared`` at application ``i``.  Each application
+keeps its own KV cache, since its inputs differ with depth.  As in the
+JAX package the weights are shared exactly (no per-application LoRA
+deltas of the released checkpoints).
+
+Parameters are ``{"embed", "layers": [{"m", "ln"}, ...], "shared":
+[{"attn", "mlp", "ln1", "ln2"}, ...], "final_norm", "unembed"}``; the
+cache keeps the JAX layout: ``state`` [L, B, H, P, N] float32, ``conv``
+[L, B, W-1, conv_dim], ``k``/``v`` [n_apps, B, Smax, Hkv, D] and
+``len``.  The prefill runs each Mamba block's scan through the SSD kernel
+(``ssm.mamba_forward``) and each shared application's causal attention
+through the flash-attention kernel: ``n_layers`` SSD calls and
+``n_layers // shared_every`` flash launches a prefill.  Decode is plain
+torch (``ssm.mamba_step``, ``layers.attn_decode_forward``).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import ssm
+
+F32 = torch.float32
+Params = Dict[str, Any]
+
+
+def _segments(cfg: ModelConfig) -> List[int]:
+    """Mamba blocks per segment: full ``shared_every`` segments, then the
+    remainder (which no shared block follows)."""
+    full, rem = divmod(cfg.n_layers, cfg.shared_every)
+    return [cfg.shared_every] * full + ([rem] if rem else [])
+
+
+def _n_apps(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.shared_every
+
+
+class Zamba2LM:
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.pdt = L.dtype_of(cfg.param_dtype)
+        self.cdt = L.dtype_of(cfg.dtype)
+
+    def init(self, gen: torch.Generator) -> Params:
+        """Random weights drawn from ``gen`` on its device."""
+        cfg = self.cfg
+        zeros = lambda: L.zeros(gen, (cfg.d_model,), self.pdt)  # noqa: E731
+        return {
+            "embed": L.embed_init(gen, (cfg.vocab_padded, cfg.d_model),
+                                  self.pdt),
+            "layers": [{"m": ssm.init_mamba_block(gen, cfg, self.pdt),
+                        "ln": zeros()} for _ in range(cfg.n_layers)],
+            "shared": [{"attn": L.init_attn(gen, cfg, self.pdt),
+                        "mlp": L.init_mlp(gen, cfg, self.pdt),
+                        "ln1": zeros(), "ln2": zeros()}
+                       for _ in range(cfg.n_shared)],
+            "final_norm": zeros(),
+            "unembed": L.dense_init(gen, (cfg.d_model, cfg.vocab_padded),
+                                    self.pdt),
+        }
+
+    def _embed(self, params, tokens):
+        return params["embed"][tokens].to(self.cdt)
+
+    def _logits(self, params, x):
+        x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        return (x @ params["unembed"].to(self.cdt)).to(F32)
+
+    def _mlp(self, sp, x):
+        return L.mlp_residual(sp["mlp"], sp["ln2"], x, self.cfg.norm_eps)
+
+    def _apps(self, params):
+        """(segment's first layer, its size, shared block or None) in
+        order."""
+        cfg = self.cfg
+        start = 0
+        for i, size in enumerate(_segments(cfg)):
+            sp = params["shared"][i % cfg.n_shared] \
+                if size == cfg.shared_every else None
+            yield start, size, sp
+            start += size
+
+    # ---------------- forward ----------------
+    def forward(self, params, batch) -> torch.Tensor:
+        """Full logits [B, S, V] (small inputs only; tests)."""
+        cfg = self.cfg
+        x = self._embed(params, batch["tokens"])
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        for start, size, sp in self._apps(params):
+            for lp in params["layers"][start:start + size]:
+                x = x + ssm.mamba_forward(
+                    lp["m"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg)
+            if sp is not None:
+                x = x + L.attn_forward(sp["attn"],
+                                       L.rms_norm(x, sp["ln1"], cfg.norm_eps),
+                                       cfg, positions, causal=True)
+                x = self._mlp(sp, x)
+        return self._logits(params, x)
+
+    # ---------------- serve ----------------
+    def cache_spec(self, batch_size: int, max_len: int) -> Dict[str, Any]:
+        """{name: (shape, dtype)} of the decode cache (``len`` an int)."""
+        cfg = self.cfg
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+        kv = ((_n_apps(cfg), batch_size, max_len, cfg.n_kv_heads,
+               cfg.head_dim), self.cdt)
+        return {
+            "state": ((cfg.n_layers, batch_size, cfg.ssm_heads,
+                       cfg.ssm_headdim, cfg.ssm_state), F32),
+            "conv": ((cfg.n_layers, batch_size, cfg.ssm_conv - 1, conv_dim),
+                     self.cdt),
+            "k": kv, "v": kv, "len": ((), torch.int64),
+        }
+
+    def init_cache(self, batch_size: int, max_len: int,
+                   device: DeviceLike = None) -> Params:
+        """Zeroed decode cache on ``device`` (``cuda`` unless asked)."""
+        return L.zero_cache(self.cache_spec(batch_size, max_len),
+                            resolve_device(device))
+
+    def prefill(self, params, batch, max_len=None) -> Tuple[torch.Tensor,
+                                                           Params]:
+        """Last-token logits [B, V] and the cache: every Mamba block's SSD
+        state and conv history, every shared application's K/V (padded to
+        ``max_len`` positions)."""
+        cfg = self.cfg
+        x = self._embed(params, batch["tokens"])
+        s = x.shape[1]
+        positions = torch.arange(s, device=x.device)[None, :]
+        states, convs, ks, vs = [], [], [], []
+        for start, size, sp in self._apps(params):
+            for lp in params["layers"][start:start + size]:
+                y, st, conv = ssm.mamba_forward(
+                    lp["m"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg,
+                    return_cache=True)
+                x = x + y
+                states.append(st)
+                convs.append(conv)
+            if sp is not None:
+                o, k, v = L.flash_attn(
+                    sp["attn"], L.rms_norm(x, sp["ln1"], cfg.norm_eps), cfg,
+                    positions, causal=True)
+                x = self._mlp(sp, x + o)
+                ks.append(k)
+                vs.append(v)
+        k_all, v_all = L.stack_kv(ks, vs, max_len)
+        logits = self._logits(params, x[:, -1:])[:, 0]
+        return logits, {"state": torch.stack(states),
+                        "conv": torch.stack(convs), "k": k_all, "v": v_all,
+                        "len": s}
+
+    def decode_step(self, params, cache, tokens) -> Tuple[torch.Tensor,
+                                                          Params]:
+        """tokens: [B] -> (logits [B, V], cache with ``len`` + 1).  The
+        cache's buffers are updated in place (``ServeEngine.decode`` works
+        on a copy)."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)[:, None]
+        clen = int(cache["len"])
+        app = 0
+        for start, size, sp in self._apps(params):
+            for i in range(start, start + size):
+                lp = params["layers"][i]
+                y, st, conv = ssm.mamba_step(
+                    lp["m"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg,
+                    cache["state"][i], cache["conv"][i])
+                x = x + y
+                cache["state"][i] = st
+                cache["conv"][i] = conv
+            if sp is not None:
+                hn = L.rms_norm(x, sp["ln1"], cfg.norm_eps)
+                x = x + L.attn_decode_forward(sp["attn"], hn, cfg,
+                                              cache["k"][app],
+                                              cache["v"][app], clen)
+                x = self._mlp(sp, x)
+                app += 1
+        return self._logits(params, x)[:, 0], {**cache, "len": clen + 1}

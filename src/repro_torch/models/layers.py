@@ -9,9 +9,19 @@ float32, probabilities rounded to the value type before the PV product.
 
 Attention here is plain torch: ``attention_naive`` / ``attention_chunked``
 (the forward pass) and ``attention_decode`` (one query against the KV
-cache).  The causal prefill goes through the flash-attention kernel
-instead (``kernels.flash_attention``, called by ``models.transformer``).
-MoE (``init_moe``, ``moe_forward``) is not ported yet (ROADMAP A8).
+cache).  The prefills go through the flash-attention kernel instead
+(``flash_attn``, which every model's prefill calls).
+
+MoE (``init_moe``, ``moe_forward``): a float32 router over the padded
+expert count (padded experts masked out), top-k by a stable descending
+sort (``jax.lax.top_k`` breaks ties toward the lower index), and either
+every expert on every token (``dense``) or the reference's sort-based
+capacity dispatch (``dispatch``: groups of tokens, a stable argsort over
+the expert ids, slots past the capacity dropped to a zero row, combined
+through the inverse permutation).  The expert products are batched
+matrix products outside any kernel, as in the JAX package; its
+``_moe_shardmap`` (expert parallelism over a device mesh) waits for the
+device mesh.
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention
 
 NEG_INF = -2.0e38
 F32 = torch.float32
@@ -36,7 +47,8 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 # ---------------------------------------------------------------------------
-# init helpers (an explicit generator: the port draws its own weights)
+# init helpers (an explicit generator: the port draws its own weights, on
+# the generator's device)
 # ---------------------------------------------------------------------------
 
 def dense_init(gen: torch.Generator, shape, dtype,
@@ -44,13 +56,19 @@ def dense_init(gen: torch.Generator, shape, dtype,
     """Truncated-normal fan-in init (truncated at +-2, then scaled)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    w = torch.empty(shape, dtype=F32)
+    w = torch.empty(shape, dtype=F32, device=gen.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (w * scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
-    return (torch.randn(shape, generator=gen, dtype=F32) * 0.02).to(dtype)
+    return (torch.randn(shape, generator=gen, dtype=F32, device=gen.device)
+            * 0.02).to(dtype)
+
+
+def zeros(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    """Zeros on the generator's device (norm weights, biases)."""
+    return torch.zeros(shape, dtype=dtype, device=gen.device)
 
 
 # ---------------------------------------------------------------------------
@@ -175,16 +193,64 @@ def qkv_proj(p: Params, x, cfg: ModelConfig, positions):
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
+def cross_kv(p: Params, enc, cfg: ModelConfig):
+    """k, v [B,Se,Hkv,D] of the encoder states ``enc`` [B,Se,d]."""
+    b, se, _ = enc.shape
+    shape = (b, se, cfg.n_kv_heads, cfg.head_dim)
+    return ((enc @ p["wk"].to(enc.dtype)).reshape(shape),
+            (enc @ p["wv"].to(enc.dtype)).reshape(shape))
+
+
 def attn_forward(p: Params, x, cfg: ModelConfig, positions, *,
-                 causal: bool = True):
-    """Full-sequence self-attention block body (plain torch).  x: [B,S,d]."""
+                 causal: bool = True, kv_override=None):
+    """Full-sequence attention block body (plain torch).  x: [B,S,d]; with
+    ``kv_override`` (encoder states [B,Se,d]) it is cross attention, k and
+    v from those states and no rotary on q or k."""
     b, s, _ = x.shape
-    q, k, v = qkv_proj(p, x, cfg, positions)
+    if kv_override is None:
+        q, k, v = qkv_proj(p, x, cfg, positions)
+    else:
+        q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, -1)
+        k, v = cross_kv(p, kv_override.to(x.dtype), cfg)
     if cfg.attn_mode == "naive":
         o = attention_naive(q, k, v, causal=causal)
     else:
         o = attention_chunked(q, k, v, causal=causal, chunk=cfg.attn_chunk)
     return o.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+
+
+def flash_attn(p: Params, hn, cfg: ModelConfig, positions, *,
+               causal: bool, kv=None):
+    """A prefill attention block through the flash kernel: (out [B,S,d],
+    k, v).  Self attention of ``hn`` [B,S,d] (rotary on q and k), or with
+    ``kv`` (k, v [B,Se,Hkv,D] of the encoder states) cross attention, q
+    without rotary."""
+    b, s, _ = hn.shape
+    if kv is None:
+        q, k, v = qkv_proj(p, hn, cfg, positions)
+    else:
+        q = (hn @ p["wq"].to(hn.dtype)).reshape(b, s, cfg.n_heads,
+                                                cfg.head_dim)
+        k, v = (t.to(hn.dtype) for t in kv)
+    o = flash_attention(q, k, v, causal=causal)
+    return o.reshape(b, s, -1) @ p["wo"].to(hn.dtype), k, v
+
+
+def stack_kv(ks, vs, max_len: Optional[int]):
+    """The per-layer prefill K/V [B,S,Hkv,D] stacked [L,B,Smax,Hkv,D] and
+    zero-padded to ``max_len`` positions (at least S)."""
+    k, v = torch.stack(ks), torch.stack(vs)
+    pad = max(0, (max_len or 0) - k.shape[2])
+    return (F.pad(k, (0, 0, 0, 0, 0, pad)), F.pad(v, (0, 0, 0, 0, 0, pad)))
+
+
+def zero_cache(spec, device) -> Dict:
+    """The decode cache of ``spec`` ({name: (shape, dtype)}) zeroed on
+    ``device``; its ``len`` 0."""
+    cache = {name: torch.zeros(shape, dtype=dt, device=device)
+             for name, (shape, dt) in spec.items() if name != "len"}
+    cache["len"] = 0
+    return cache
 
 
 def attn_decode_forward(p: Params, x, cfg: ModelConfig, cache_k, cache_v,
@@ -220,3 +286,128 @@ def mlp_forward(p: Params, x):
     cdt = x.dtype
     h = F.silu(x @ p["wg"].to(cdt)) * (x @ p["wi"].to(cdt))
     return h @ p["wo"].to(cdt)
+
+
+def mlp_residual(p: Params, ln, x, eps: float):
+    """``x`` plus the MLP of its RMS norm (weight ``ln``)."""
+    return x + mlp_forward(p, rms_norm(x, ln, eps))
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, pdt) -> Params:
+    """Router [d, E] in float32 and expert weights [E, ...] over the padded
+    expert count (padded experts never receive a token)."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts_padded
+    return {
+        "router": dense_init(gen, (d, e), F32),
+        "wg": dense_init(gen, (e, d, f), pdt),
+        "wi": dense_init(gen, (e, d, f), pdt),
+        "wo": dense_init(gen, (e, f, d), pdt),
+    }
+
+
+def moe_route(p: Params, x, cfg: ModelConfig):
+    """(topw [B,S,K] float32, topi [B,S,K]) of ``x`` [B,S,d]: the router
+    product in float32, padded experts at -1e30 before the softmax, the
+    top k by a stable descending sort (ties to the lower expert index, as
+    ``jax.lax.top_k``), weights renormalised by their sum (at least
+    1e-9)."""
+    e, k = cfg.n_experts_padded, cfg.topk
+    logits = x.to(F32) @ p["router"].to(F32)                      # [B,S,E]
+    if e > cfg.n_experts:
+        pad = torch.arange(e, device=x.device) >= cfg.n_experts
+        logits = logits.masked_fill(pad, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topw, topi = topw[..., :k], topi[..., :k]
+    return topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9), topi
+
+
+def _experts(p: Params, xg, cdt):
+    """SwiGLU of every expert on its own rows: xg [G,E,C,d] -> [G,E,C,d]."""
+    h = torch.einsum("gecd,edf->gecf", xg, p["wg"].to(cdt))
+    u = torch.einsum("gecd,edf->gecf", xg, p["wi"].to(cdt))
+    return torch.einsum("gecf,efd->gecd", F.silu(h) * u, p["wo"].to(cdt))
+
+
+def moe_forward(p: Params, x, cfg: ModelConfig):
+    """Top-k MoE FFN.  x: [B,S,d] -> [B,S,d]; ``cfg.moe_mode`` ``dense``
+    (every expert computes every token, combined with the sparse gate
+    weights: the correctness oracle) or ``dispatch`` (sort-based capacity
+    dispatch over ``moe_groups`` groups of the sequence)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts_padded, cfg.topk
+    cdt = x.dtype
+    topw, topi = moe_route(p, x, cfg)
+    if cfg.moe_mode == "dense":
+        y = _experts(p, x.reshape(1, 1, b * s, d).expand(1, e, b * s, d),
+                     cdt)[0]                                      # [E,BS,d]
+        dense_w = torch.zeros((b * s, e), dtype=F32, device=x.device)
+        dense_w.scatter_add_(1, topi.reshape(b * s, k),
+                             topw.reshape(b * s, k))
+        out = torch.einsum("etd,te->td", y, dense_w.to(cdt))
+        return out.reshape(b, s, d)
+    g = cfg.moe_groups if s % cfg.moe_groups == 0 and s >= cfg.moe_groups \
+        else 1
+    tg = s // g
+    out = _moe_dispatch_batched(x.reshape(b * g, tg, d),
+                                topi.reshape(b * g, tg, k),
+                                topw.reshape(b * g, tg, k).to(cdt), p, cfg)
+    return out.reshape(b, s, d)
+
+
+def moe_capacity(t: int, cfg: ModelConfig) -> int:
+    """Slots per expert for a group of ``t`` tokens:
+    max(4, min(ceil(t k / E * capacity_factor), t))."""
+    cap = int(math.ceil(t * cfg.topk / cfg.n_experts_padded
+                        * cfg.capacity_factor))
+    return max(4, min(cap, t))
+
+
+def dispatch_plan(ti, e: int, cap: int):
+    """The capacity dispatch of expert choices ``ti`` [G,T,K]:
+    (buf_idx [G, E*cap], the token row of each expert slot — ``T``, the
+    zero row, where the slot is empty — and bp [G, T*K], the slot each
+    (token, choice) landed in — ``E*cap``, the zero row, where it was
+    dropped).  Choices are ordered by a stable sort on the expert id, so
+    an expert's first ``cap`` choices in token order keep their slots."""
+    gdim, t, k = ti.shape
+    tk = t * k
+    dev = ti.device
+    flat_e = ti.reshape(gdim, tk)
+    flat_row = torch.arange(t, device=dev).repeat_interleave(k)
+    order = torch.argsort(flat_e, dim=1, stable=True)            # [G,TK]
+    e_sorted = torch.gather(flat_e, 1, order)
+    row_sorted = flat_row[order]
+    counts = torch.zeros((gdim, e), dtype=torch.int64, device=dev)
+    counts.scatter_add_(1, flat_e, torch.ones_like(flat_e))
+    start = torch.cumsum(counts, dim=1) - counts                 # [G,E]
+    slot = torch.arange(cap, device=dev)
+    s_pos = torch.clamp(start[:, :, None] + slot, max=tk - 1)
+    valid = slot < torch.clamp(counts, max=cap)[:, :, None]      # [G,E,cap]
+    buf_idx = torch.where(
+        valid, torch.gather(row_sorted, 1, s_pos.reshape(gdim, e * cap))
+        .reshape(gdim, e, cap), t).reshape(gdim, e * cap)
+    pos_in_e = torch.arange(tk, device=dev) - torch.gather(start, 1, e_sorted)
+    bp_sorted = torch.where(pos_in_e < cap, e_sorted * cap + pos_in_e, e * cap)
+    bp = torch.empty_like(bp_sorted).scatter_(1, order, bp_sorted)
+    return buf_idx, bp
+
+
+def _moe_dispatch_batched(xf, ti, tw, p: Params, cfg: ModelConfig):
+    """Batched capacity dispatch.  xf: [G,T,d]; ti/tw: [G,T,K].  Each
+    group's token rows are gathered into [E, cap] expert buffers, the
+    experts run batched, and each (token, choice) gathers its slot back
+    (a dropped one the zero row), weighted by its gate."""
+    gdim, t, d = xf.shape
+    e, k = cfg.n_experts_padded, cfg.topk
+    cdt = xf.dtype
+    cap = moe_capacity(t, cfg)
+    buf_idx, bp = dispatch_plan(ti, e, cap)
+    zero = xf.new_zeros((gdim, 1, d))
+    x_pad = torch.cat([xf, zero], dim=1)
+    xg = torch.gather(x_pad, 1, buf_idx[..., None].expand(-1, -1, d))
+    yg = _experts(p, xg.reshape(gdim, e, cap, d), cdt)
+    yg_pad = torch.cat([yg.reshape(gdim, e * cap, d), zero], dim=1)
+    contrib = torch.gather(yg_pad, 1, bp[..., None].expand(-1, -1, d))
+    return torch.einsum("gtkd,gtk->gtd", contrib.reshape(gdim, t, k, d),
+                        tw.to(cdt))

@@ -29,15 +29,15 @@ class Mamba2LM:
         self.cdt = L.dtype_of(cfg.dtype)
 
     def init(self, gen: torch.Generator) -> Params:
-        """Random weights drawn on the CPU from ``gen``."""
+        """Random weights drawn from ``gen`` on its device."""
         cfg = self.cfg
         params = {
             "embed": L.embed_init(gen, (cfg.vocab_padded, cfg.d_model),
                                   self.pdt),
             "layers": [{"m": ssm.init_mamba_block(gen, cfg, self.pdt),
-                        "ln": torch.zeros((cfg.d_model,), dtype=self.pdt)}
+                        "ln": L.zeros(gen, (cfg.d_model,), self.pdt)}
                        for _ in range(cfg.n_layers)],
-            "final_norm": torch.zeros((cfg.d_model,), dtype=self.pdt),
+            "final_norm": L.zeros(gen, (cfg.d_model,), self.pdt),
         }
         if not cfg.tie_embeddings:
             params["unembed"] = L.dense_init(

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd import ssd_scan
-from repro_torch.models.layers import dense_init, gated_rms_norm
+from repro_torch.models.layers import dense_init, gated_rms_norm, zeros
 
 F32 = torch.float32
 Params = Dict[str, torch.Tensor]
@@ -110,19 +110,20 @@ def init_mamba_block(gen: torch.Generator, cfg: ModelConfig, pdt) -> Params:
                        cfg.ssm_heads, cfg.ssm_conv)
     conv_dim = di + 2 * n
     lo, hi = math.log(1e-3), math.log(1e-1)
-    u = torch.rand(nh, generator=gen, dtype=F32) * (hi - lo) + lo
+    dev = gen.device
+    u = torch.rand(nh, generator=gen, dtype=F32, device=dev) * (hi - lo) + lo
     dt_bias = torch.log(torch.expm1(torch.exp(u)))
     return {
         "in_proj": dense_init(gen, (d, 2 * di + 2 * n + nh), pdt),
         "conv_w": dense_init(gen, (w, conv_dim), pdt,
                              scale=1.0 / math.sqrt(w)),
-        "conv_b": torch.zeros((conv_dim,), dtype=pdt),
+        "conv_b": zeros(gen, (conv_dim,), pdt),
         "out_proj": dense_init(gen, (di, d), pdt),
-        "A_log": torch.log(torch.rand(nh, generator=gen, dtype=F32) * 15.0
-                           + 1.0),
-        "D": torch.ones((nh,), dtype=F32),
+        "A_log": torch.log(torch.rand(nh, generator=gen, dtype=F32,
+                                      device=dev) * 15.0 + 1.0),
+        "D": torch.ones((nh,), dtype=F32, device=dev),
         "dt_bias": dt_bias,
-        "norm_w": torch.zeros((di,), dtype=pdt),
+        "norm_w": zeros(gen, (di,), pdt),
     }
 
 

@@ -1,12 +1,16 @@
 """Decoder-only transformer LM in PyTorch — the port of the JAX package's
-``repro.models.transformer`` for the ``dense`` family (smollm-135m and
-the other GQA llama-style configs).
+``repro.models.transformer``: the ``dense`` family (smollm-135m and the
+other GQA llama-style configs), ``moe`` (granite-moe-3b-a800m,
+qwen3-moe-30b-a3b: every layer's FFN through ``layers.moe_forward``) and
+``vlm`` (internvl2-1b: precomputed patch embeddings, projected by
+``patch_proj``, go before the tokens).
 
 Parameters are ``{"embed", "layers": [per-layer dict, ...],
-"final_norm"[, "unembed"]}`` (the JAX package stacks ``layers`` along a
-leading ``L`` dimension; ``models.convert.params_from_jax`` unstacks).
-Caches keep the JAX layout: ``k``/``v`` [L, B, Smax, Hkv, D] and ``len``
-(an int here, a scalar array there).
+"final_norm"[, "unembed"][, "patch_proj"]}`` (the JAX package stacks
+``layers`` along a leading ``L`` dimension;
+``models.convert.params_from_jax`` unstacks).  Caches keep the JAX
+layout: ``k``/``v`` [L, B, Smax, Hkv, D] and ``len`` (an int here, a
+scalar array there); for ``vlm`` the positions count the patches too.
 
 The causal prefill sends its attention through the flash-attention kernel
 (``kernels.flash_attention``: the CUDA kernel on the card, its plain
@@ -14,7 +18,7 @@ version on the CPU), one launch per layer.  ``forward`` keeps the JAX
 package's plain attention (``layers.attn_forward``), and decode attends
 with plain torch (``layers.attention_decode``: one query against the
 cache; the kernel's causal mask assumes query and key positions both
-start at 0).  The ``moe`` and ``vlm`` families wait (ROADMAP A8).
+start at 0).
 """
 from __future__ import annotations
 
@@ -24,7 +28,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import layers as L
 
 F32 = torch.float32
@@ -32,35 +35,40 @@ Params = Dict[str, Any]
 
 
 class TransformerLM:
-    """family ``dense``; ``moe`` and ``vlm`` raise (not ported yet)."""
+    """families: dense | moe | vlm."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r}: the port's TransformerLM runs the "
-                f"dense family only; moe and vlm wait (ROADMAP A8)")
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"TransformerLM runs dense, moe and vlm, not "
+                             f"{cfg.family!r}")
         self.cfg = cfg
         self.pdt = L.dtype_of(cfg.param_dtype)
         self.cdt = L.dtype_of(cfg.dtype)
 
     # ---------------- params ----------------
     def init(self, gen: torch.Generator) -> Params:
-        """Random weights drawn on the CPU from ``gen``."""
+        """Random weights drawn from ``gen`` on its device."""
         cfg = self.cfg
+        zeros = lambda: L.zeros(gen, (cfg.d_model,), self.pdt)  # noqa: E731
+        ffn = "moe" if cfg.family == "moe" else "mlp"
+        init_ffn = L.init_moe if cfg.family == "moe" else L.init_mlp
         params = {
             "embed": L.embed_init(gen, (cfg.vocab_padded, cfg.d_model),
                                   self.pdt),
             "layers": [{
                 "attn": L.init_attn(gen, cfg, self.pdt),
-                "ln1": torch.zeros((cfg.d_model,), dtype=self.pdt),
-                "ln2": torch.zeros((cfg.d_model,), dtype=self.pdt),
-                "mlp": L.init_mlp(gen, cfg, self.pdt),
+                "ln1": zeros(),
+                "ln2": zeros(),
+                ffn: init_ffn(gen, cfg, self.pdt),
             } for _ in range(cfg.n_layers)],
-            "final_norm": torch.zeros((cfg.d_model,), dtype=self.pdt),
+            "final_norm": zeros(),
         }
         if not cfg.tie_embeddings:
             params["unembed"] = L.dense_init(
                 gen, (cfg.d_model, cfg.vocab_padded), self.pdt)
+        if cfg.family == "vlm":
+            params["patch_proj"] = L.dense_init(
+                gen, (cfg.d_model, cfg.d_model), self.pdt)
         return params
 
     def _unembed(self, params):
@@ -71,6 +79,21 @@ class TransformerLM:
     def _embed(self, params, tokens):
         return params["embed"][tokens].to(self.cdt)
 
+    def _embed_inputs(self, params, batch):
+        """Token embeddings [B,S,d]; for ``vlm`` the projected
+        ``patch_embeds`` [B,P,d] go before them ([B,P+S,d])."""
+        x = self._embed(params, batch["tokens"])
+        if self.cfg.family == "vlm":
+            patches = batch["patch_embeds"].to(self.cdt) @ \
+                params["patch_proj"].to(self.cdt)
+            x = torch.cat([patches, x], dim=1)
+        return x
+
+    def _ffn(self, lp, x):
+        if self.cfg.family == "moe":
+            return L.moe_forward(lp["moe"], x, self.cfg)
+        return L.mlp_forward(lp["mlp"], x)
+
     def _logits(self, params, x):
         x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return (x @ self._unembed(params).to(self.cdt)).to(F32)
@@ -79,42 +102,36 @@ class TransformerLM:
     def forward(self, params, batch) -> torch.Tensor:
         """Full logits [B, S, V] (small inputs only; tests)."""
         cfg = self.cfg
-        x = self._embed(params, batch["tokens"])
+        x = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         for lp in params["layers"]:
             x = x + L.attn_forward(lp["attn"],
                                    L.rms_norm(x, lp["ln1"], cfg.norm_eps),
                                    cfg, positions, causal=True)
-            x = x + L.mlp_forward(lp["mlp"],
-                                  L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+            x = x + self._ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps))
         return self._logits(params, x)
 
     # ---------------- serve ----------------
     def prefill(self, params, batch, max_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Params]:
         """Process the whole prompt; return last-token logits [B, V] and
-        the KV cache (padded to ``max_len`` positions)."""
+        the KV cache (padded to ``max_len`` positions; a ``vlm`` prompt
+        holds its patches too, so its ``max_len`` must count them)."""
         cfg = self.cfg
-        x = self._embed(params, batch["tokens"])
-        b, s, _ = x.shape
+        x = self._embed_inputs(params, batch)
+        s = x.shape[1]
         positions = torch.arange(s, device=x.device)[None, :]
         ks, vs = [], []
         for lp in params["layers"]:
-            hn = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-            q, k, v = L.qkv_proj(lp["attn"], hn, cfg, positions)
-            o = flash_attention(q, k, v, causal=True)
-            x = x + o.reshape(b, s, -1) @ lp["attn"]["wo"].to(x.dtype)
-            x = x + L.mlp_forward(lp["mlp"],
-                                  L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+            o, k, v = L.flash_attn(lp["attn"],
+                                   L.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                                   cfg, positions, causal=True)
+            x = x + o
+            x = x + self._ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps))
             ks.append(k)
             vs.append(v)
         logits = self._logits(params, x[:, -1:])[:, 0]
-        total = max(s, max_len or 0)
-        shape = (cfg.n_layers, b, total, cfg.n_kv_heads, cfg.head_dim)
-        k_all = x.new_zeros(shape)
-        v_all = x.new_zeros(shape)
-        k_all[:, :, :s] = torch.stack(ks)
-        v_all[:, :, :s] = torch.stack(vs)
+        k_all, v_all = L.stack_kv(ks, vs, max_len)
         if cfg.kv_quant:
             kq, k_s = _kv_quantize(k_all)
             vq, v_s = _kv_quantize(v_all)
@@ -137,12 +154,8 @@ class TransformerLM:
     def init_cache(self, batch_size: int, max_len: int,
                    device: DeviceLike = None) -> Params:
         """Zeroed decode cache on ``device`` (``cuda`` unless asked)."""
-        dev = resolve_device(device)
-        spec = self.cache_spec(batch_size, max_len)
-        cache = {name: torch.zeros(shape, dtype=dt, device=dev)
-                 for name, (shape, dt) in spec.items() if name != "len"}
-        cache["len"] = 0
-        return cache
+        return L.zero_cache(self.cache_spec(batch_size, max_len),
+                            resolve_device(device))
 
     def decode_step(self, params, cache, tokens) -> Tuple[torch.Tensor,
                                                           Params]:
@@ -161,8 +174,7 @@ class TransformerLM:
                 a = L.attn_decode_forward(lp["attn"], hn, cfg, cache["k"][i],
                                           cache["v"][i], clen)
             x = x + a
-            x = x + L.mlp_forward(lp["mlp"],
-                                  L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+            x = x + self._ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps))
         logits = self._logits(params, x)[:, 0]
         return logits, {**cache, "len": clen + 1}
 

@@ -4,8 +4,20 @@ model's ``prefill`` and ``decode_step`` (the port of the JAX package's
 
 PyTorch runs eagerly, so nothing is compiled per shape.  The engine runs
 on ``cuda`` unless asked for the CPU (and raises without a GPU); its
-weights are ``params`` when given, else drawn from ``generator`` (seed 0)
-by ``models.convert.init_params``.
+weights are ``params`` when given, else drawn from ``generator`` (seed 0
+on the engine's device) by ``models.convert.init_params``.  The default
+draw depends on the device: seed 0 on the card and seed 0 on the CPU give
+different weights, so an engine on ``cpu`` and one on ``cuda`` built
+without ``params`` serve different models.  Pass one CPU generator (or
+the same ``params``) to both for the same weights.
+
+As the JAX engine does, it feeds the stub frontends zeros in the compute
+type: a ``vlm`` prompt gets ``patch_embeds`` [B, n_patches, d] before its
+tokens, an ``encdec`` prompt ``frames`` [B, S, d] as long as its tokens.
+Unlike it, a ``vlm`` cache holds ``n_patches + max_len`` positions: the
+JAX launcher's ``max_len`` (``src/repro/launch/serve.py:115``) does not
+count the patches, so its cache is never padded and every decode step's
+write lands clamped on the last prompt slot (ROADMAP C-ref-8).
 """
 from __future__ import annotations
 
@@ -17,6 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import get_model, init_params
+from repro_torch.models.layers import dtype_of
 
 Cache = Dict[str, Any]
 
@@ -35,13 +48,25 @@ class ServeEngine:
     def prefill(self, tokens: np.ndarray, max_len: int
                 ) -> Tuple[torch.Tensor, Cache]:
         """Last-token logits [B, V] and the cache of prompt ``tokens``
-        [B, S]; a transformer's KV cache holds ``max_len`` positions (the
-        ssm family's state does not grow, so it takes no ``max_len``)."""
+        [B, S]; a KV cache holds ``max_len`` positions, ``n_patches`` more
+        for ``vlm`` (the ssm family's state does not grow, so it takes no
+        ``max_len``)."""
+        cfg = self.cfg
         batch = {"tokens": torch.as_tensor(np.asarray(tokens),
                                            dtype=torch.int64,
                                            device=self.device)}
-        if self.cfg.family == "ssm":
+        b, s = batch["tokens"].shape
+        cdt = dtype_of(cfg.dtype)
+        if cfg.family == "ssm":
             return self.model.prefill(self.params, batch)
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = torch.zeros(
+                (b, cfg.n_patches, cfg.d_model), dtype=cdt,
+                device=self.device)
+            max_len = cfg.n_patches + max_len
+        if cfg.family == "encdec":
+            batch["frames"] = torch.zeros((b, s, cfg.d_model), dtype=cdt,
+                                          device=self.device)
         return self.model.prefill(self.params, batch, max_len=max_len)
 
     @torch.no_grad()

@@ -342,7 +342,10 @@ def _qkv(seed, b, sq, hq, hkv, d, dtype, dev, sk=None):
 @pytest.mark.parametrize("b,sq,sk,hq,hkv,d", [
     (1, 24, 24, 9, 3, 64), (2, 256, 256, 4, 2, 64), (1, 300, 300, 4, 1, 128),
     (1, 1, 1, 2, 2, 16), (2, 77, 77, 6, 3, 32), (1, 40, 75, 4, 2, 64),
-    (1, 2048, 2048, 9, 3, 64)])
+    (1, 2048, 2048, 9, 3, 64), (1, 75, 40, 4, 2, 64),
+    (1, 512, 512, 32, 32, 112), (2, 77, 77, 4, 4, 112),
+    (1, 48, 200, 4, 2, 112), (1, 200, 48, 4, 2, 112),
+    (1, 256, 384, 16, 16, 64)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernel_matches_plain_on_card(card, b, sq, sk, hq, hkv, d,
                                             causal):
@@ -352,10 +355,12 @@ def test_flash_kernel_matches_plain_on_card(card, b, sq, sk, hq, hkv, d,
     cores), so they differ by the summation order and p's low 8 bits
     before one rounding of o to bf16 — every output within one bf16 ulp
     (at least 2^-9), at most 1% of them differing at all.  Rounding p to
-    bf16 once, or dropping its low part, makes about a third differ."""
+    bf16 once, or dropping its low part, makes about a third differ.
+    Head dim 112 is zamba2-7b's shared attention (the wgmma kernel pads it
+    to two 64-column panels); [1, 256 | 384, 16/16, 64] a
+    seamless-m4t-medium cross attention.  Causal with Sq != Sk holds the
+    reference's top-left mask (query i sees keys j <= i)."""
     from repro_torch.kernels import flash_attention as fa
-    if causal and sq != sk:
-        pytest.skip("causal masking is for prefill (Sq == Sk)")
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
         q, k, v = _qkv(sq + d, b, sq, hq, hkv, d, dtype, card, sk)
         got = fa.flash_attention(q, k, v, causal=causal)
@@ -456,12 +461,24 @@ def test_ssd_kernel_counts_launches_and_rejects_bad_inputs(card):
     assert ssd.LAUNCHES == {"ssd_scan": 1}
 
 
+def _prefill_launches(cfg) -> int:
+    """Flash and SSD launches of one prefill of ``cfg``'s model."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers + cfg.n_layers // cfg.shared_every
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-370m"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-370m",
+                                  "granite-moe-3b-a800m", "internvl2-1b",
+                                  "zamba2-7b", "seamless-m4t-medium"])
 def test_reduced_serve_path_card_equals_cpu(card, arch):
     """The reduced float32 model on the card (kernels) against the CPU
     (plain versions), same weights: prefill logits and caches at 1e-4,
-    greedy tokens equal, one kernel launch per layer per prefill."""
+    greedy tokens equal, one kernel launch per attention (flash) and per
+    Mamba block (SSD) per prefill."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd
@@ -477,7 +494,7 @@ def test_reduced_serve_path_card_equals_cpu(card, arch):
     ssd.reset_launches()
     lg, cache = gpu.prefill(toks, max_len=48)
     launches = fa.LAUNCHES["flash_attention"] + ssd.LAUNCHES["ssd_scan"]
-    assert launches == cfg.n_layers
+    assert launches == _prefill_launches(cfg)
     lc, cache_c = cpu.prefill(toks, max_len=48)
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
     for name in cache_c:
@@ -487,3 +504,26 @@ def test_reduced_serve_path_card_equals_cpu(card, arch):
     first = np.zeros(2, np.int32)
     np.testing.assert_array_equal(gpu.decode(cache, first, 4)[0],
                                   cpu.decode(cache_c, first, 4)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("moe_mode", ["dense", "dispatch"])
+def test_moe_forward_card_equals_cpu(card, moe_mode):
+    """The reduced granite-moe FFN on the card against the CPU in float32,
+    both MoE modes: the same experts chosen, outputs at 1e-4."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models import layers as L
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m").reduced(),
+                              moe_mode=moe_mode, capacity_factor=1.0)
+    p = init_params(cfg, torch.Generator().manual_seed(4),
+                    "cpu")["layers"][0]["moe"]
+    pg = {k: v.to(card) for k, v in p.items()}
+    x = torch.randn((2, 32, cfg.d_model),
+                    generator=torch.Generator().manual_seed(5))
+    torch.testing.assert_close(L.moe_route(pg, x.to(card), cfg)[1].cpu(),
+                               L.moe_route(p, x, cfg)[1])
+    torch.testing.assert_close(L.moe_forward(pg, x.to(card), cfg).cpu(),
+                               L.moe_forward(p, x, cfg), rtol=1e-4,
+                               atol=1e-4)

@@ -44,6 +44,7 @@ def _port(q, k, v, causal, dtype=torch.float32):
     (1, 512, 8, 8, 64),
     (2, 256, 4, 1, 128),
     (1, 384, 6, 3, 64),
+    (1, 256, 4, 4, 112),
 ])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_matches_pallas_and_oracle(b, s, hq, hkv, d, causal):
@@ -56,7 +57,8 @@ def test_flash_matches_pallas_and_oracle(b, s, hq, hkv, d, causal):
 
 
 @pytest.mark.parametrize("s,hq,hkv,d", [(24, 9, 3, 64), (300, 4, 2, 16),
-                                        (1, 2, 1, 32), (37, 6, 6, 128)])
+                                        (1, 2, 1, 32), (37, 6, 6, 128),
+                                        (77, 4, 2, 112)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_ragged_lengths_match_oracle(s, hq, hkv, d, causal):
     """Any sequence length (the serve path prefills 24 tokens; the
@@ -71,6 +73,19 @@ def test_flash_non_causal_cross_lengths():
     q, k, v = _qkv(5, 2, 40, 4, 2, 32, sk=75)
     oracle = np.asarray(attention_ref(q, k, v, causal=False))
     np.testing.assert_allclose(_port(q, k, v, False), oracle, **TOL)
+
+
+@pytest.mark.parametrize("sq,sk,d", [(40, 75, 32), (75, 40, 32),
+                                     (48, 80, 112), (80, 48, 112)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_cross_lengths_and_head_dim_112(sq, sk, d, causal):
+    """Sk != Sq against the oracle, at head dim 32 and at zamba2-7b's 112:
+    non-causal (the encoder-decoder's cross attention), and causal with
+    the reference's top-left mask (query i sees keys j <= i,
+    ``flash.py:43-57``)."""
+    q, k, v = _qkv(5 + d, 2, sq, 4, 2, d, sk=sk)
+    oracle = np.asarray(attention_ref(q, k, v, causal=causal))
+    np.testing.assert_allclose(_port(q, k, v, causal), oracle, **TOL)
 
 
 def test_flash_bf16_close_to_f32_oracle():

@@ -54,6 +54,11 @@ def test_port_imports_neither_jax_nor_reference():
                  "repro_torch.configs.mamba2_370m",
                  "repro_torch.models.layers", "repro_torch.models.transformer",
                  "repro_torch.models.ssm", "repro_torch.models.mamba_lm",
+                 "repro_torch.models.hybrid", "repro_torch.models.encdec",
+                 "repro_torch.configs.zamba2_7b",
+                 "repro_torch.configs.seamless_m4t_medium",
+                 "repro_torch.configs.internvl2_1b",
+                 "repro_torch.configs.granite_moe_3b_a800m",
                  "repro_torch.models.registry", "repro_torch.models.convert",
                  "repro_torch.serving.engine",
                  "repro_torch.cachesim.sweep", "repro_torch.cachesim.scenarios",
@@ -72,6 +77,23 @@ def test_port_imports_neither_jax_nor_reference():
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
     assert "BAD []" in proc.stdout, proc.stdout
+
+
+def test_chip_smoke_imports_neither_jax_nor_reference():
+    """``chip_smoke.py`` runs on a host without JAX: no import anywhere in
+    it (module level or inside a phase) names ``jax`` or the reference
+    package ``repro``."""
+    import ast
+    tree = ast.parse((Path(SRC).parent / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    roots = {n.split(".")[0] for n in names}
+    assert "repro_torch" in roots and "torch" in roots
+    assert not roots & {"jax", "jaxlib", "repro"}, sorted(names)
 
 
 def test_entry_points_raise_without_gpu(monkeypatch):
@@ -183,28 +205,42 @@ def test_lm_entry_points_raise_without_gpu(monkeypatch):
 
 
 def _stack_layers(tree):
-    """The port's per-layer parameter list as the JAX layout's stacked
-    NumPy leaves (leading ``L`` dimension)."""
+    """The port's per-block parameter lists (``layers``, ``shared``,
+    ``enc_layers``, ``dec_layers``) as the JAX layout's stacked NumPy
+    leaves (a leading block dimension)."""
     def stack(leaves):
         if isinstance(leaves[0], dict):
             return {k: stack([x[k] for x in leaves]) for k in leaves[0]}
         return np.stack([x.numpy() for x in leaves])
-    out = {k: v.numpy() for k, v in tree.items() if k != "layers"}
-    out["layers"] = stack(tree["layers"])
-    return out
+
+    def plain(v):
+        return {k: plain(x) for k, x in v.items()} if isinstance(v, dict) \
+            else v.numpy()
+    return {k: stack(v) if isinstance(v, list) else plain(v)
+            for k, v in tree.items()}
 
 
-@pytest.mark.parametrize("helper", ["params_from_jax", "transformer_cache",
-                                    "mamba_cache", "concrete_batch"])
+#: helper -> architecture whose reduced config it runs
+HELPER_ARCH = {"params_from_jax": "smollm-135m",
+               "transformer_cache": "smollm-135m",
+               "mamba_cache": "mamba2-370m", "concrete_batch": "smollm-135m",
+               "params_from_jax_hybrid": "zamba2-7b",
+               "params_from_jax_encdec": "seamless-m4t-medium",
+               "hybrid_cache": "zamba2-7b",
+               "encdec_cache": "seamless-m4t-medium",
+               "concrete_batch_vlm": "internvl2-1b"}
+
+
+@pytest.mark.parametrize("helper", list(HELPER_ARCH))
 def test_model_helpers_default_to_cuda(monkeypatch, helper):
-    """The weight converter, both decode caches and the concrete batch run
-    on the card unless ``device="cpu"`` is passed, and raise without a
-    GPU (``resolve_device``'s message)."""
+    """The weight converter, every decode cache (transformer, Mamba2,
+    hybrid, encoder-decoder) and the concrete batch run on the card unless
+    ``device="cpu"`` is passed, and raise without a GPU
+    (``resolve_device``'s message)."""
     from repro_torch.configs import get_config
     from repro_torch.models import (get_model, init_params,
                                     make_concrete_batch, params_from_jax)
-    arch = "mamba2-370m" if helper == "mamba_cache" else "smollm-135m"
-    cfg = get_config(arch).reduced()
+    cfg = get_config(HELPER_ARCH[helper]).reduced()
     model = get_model(cfg)
     call = {
         "params_from_jax": lambda **kw: params_from_jax(
@@ -213,7 +249,14 @@ def test_model_helpers_default_to_cuda(monkeypatch, helper):
         "mamba_cache": lambda **kw: model.init_cache(2, **kw),
         "concrete_batch": lambda **kw: make_concrete_batch(
             cfg, 2, 5, torch.Generator().manual_seed(0), **kw),
-    }[helper]
+        "hybrid_cache": lambda **kw: model.init_cache(2, 8, **kw),
+        "encdec_cache": lambda **kw: model.init_cache(2, 8, 6, **kw),
+        "concrete_batch_vlm": lambda **kw: make_concrete_batch(
+            cfg, 2, 40, torch.Generator().manual_seed(0), **kw),
+    }
+    call["params_from_jax_hybrid"] = call["params_from_jax"]
+    call["params_from_jax_encdec"] = call["params_from_jax"]
+    call = call[helper]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
@@ -224,12 +267,25 @@ def test_model_helpers_default_to_cuda(monkeypatch, helper):
 
 
 def test_other_families_raise_not_implemented():
+    """No family raises NotImplementedError any more: ``get_model`` builds
+    the moe, vlm, encdec and hybrid families (their reduced configs) as
+    the JAX package's registry does, and an unknown family still raises
+    ValueError."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
-    for arch in ("qwen3-moe-30b-a3b", "internvl2-1b", "seamless-m4t-medium",
-                 "zamba2-7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            get_model(get_config(arch).reduced())
+    for arch, model in (("qwen3-moe-30b-a3b", "TransformerLM"),
+                        ("granite-moe-3b-a800m", "TransformerLM"),
+                        ("internvl2-1b", "TransformerLM"),
+                        ("seamless-m4t-medium", "EncDecLM"),
+                        ("zamba2-7b", "Zamba2LM")):
+        cfg = get_config(arch).reduced()
+        built = get_model(cfg)
+        assert type(built).__name__ == model and built.cfg == cfg
+    cfg = dataclasses.replace(get_config("smollm-135m").reduced(),
+                              family="retnet")
+    with pytest.raises(ValueError, match="unknown family"):
+        get_model(cfg)
 
 
 def test_cpu_tensors_take_plain_path_without_counting():
