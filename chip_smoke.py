@@ -101,7 +101,28 @@ Phases, each failing the run on any mismatch:
      (d4) the two kernels' times at every main-path shape beside their
      plain versions', ``scaled_dot_product_attention``'s (flash) and
      their bounds, each flash shape first held against the plain version
-     in bf16 as in (d1).
+     in bf16 as in (d1);
+  9. the training path, which reaches no kernel (plain, differentiable
+     torch, as the JAX package's loss): (g1) ``python -m
+     repro_torch.launch.train`` as a child process at smollm-135m's
+     published config (30 layers, d 576, bf16 compute, float32 weights,
+     remat full), 30 steps of 8 x 128 tokens — every loss finite, the
+     last five's mean below the first five's, the final checkpoint
+     restored on the card and its manifest held to the state's leaves
+     and step; ms a step, tok/s, peak device memory, the checkpoint's
+     bytes and save seconds printed; (g2) the same for mamba2-370m (48
+     layers, d 1024, N 128), 10 steps; (g3) the drill at smollm-135m's
+     published config — a reference run of 8 steps checkpointed every 4,
+     a run killed at step 4 (exit 42) and its ``--resume`` (exit 0): the
+     step-8 checkpoints' leaves equal byte for byte (params, m, v, step)
+     and the final-loss lines equal; (g4) one ``make_train_step`` of each
+     family's reduced config (float32) on the card and on the CPU from
+     the same weights — loss, grad_norm and every gradient within 1e-4;
+     flash and SSD launches read around the phase (and reported by each
+     child) all 0; and where (g1)'s step goes (in this process: step ms
+     with the launcher's deterministic settings and without, in turns,
+     and a profiler window's kernel launches, device busy time and idle
+     share a step).
 
 TF32 is off for matrix products (``torch.backends.cuda.matmul``, the
 default) and for cuDNN (``torch.backends.cudnn``, on by default), so that
@@ -1307,7 +1328,8 @@ def _routes_held():
     def held(p, x, cfg):
         topw, topi = orig(p, x, cfg)
         if x.device.type == "cpu":
-            top = probs(p, x, cfg).topk(cfg.topk + 1, -1).values
+            with torch.no_grad():
+                top = probs(p, x, cfg).topk(cfg.topk + 1, -1).values
             gap = (top[..., -2] - top[..., -1]) / top[..., -2]
             tally["min_gap"] = min(tally["min_gap"], float(gap.min()))
             queue.append((topi, gap))
@@ -1574,6 +1596,300 @@ def phase_lm(dev, card: str):
     return phase_lm_times(dev, serve, errs, card)
 
 
+# ---------------------------------------------------------------------------
+# the training path (no kernel: plain, differentiable torch)
+# ---------------------------------------------------------------------------
+
+#: (g1), (g2): (arch, steps) of the launcher at the published config
+TRAIN_DRIVES = (("smollm-135m", 30), ("mamba2-370m", 10))
+TRAIN_SHAPE = ("--batch", "8", "--seq", "128")
+#: (g3) the drill at smollm-135m's published config: a reference run of
+#: ``DRILL_STEPS`` steps checkpointed every ``DRILL_INTERVAL``, a run
+#: killed at ``DRILL_KILL`` (exit 42) and its ``--resume``
+DRILL_STEPS, DRILL_INTERVAL, DRILL_KILL = 8, 4, 4
+#: (g4) one train step of each family's reduced config (float32), card
+#: against CPU
+TRAIN_COMPARE = ("smollm-135m", "granite-moe-3b-a800m", "internvl2-1b",
+                 "mamba2-370m", "zamba2-7b", "seamless-m4t-medium")
+TRAIN_TOL = 1e-4
+
+
+def _train(args, ckpt_dir: Path):
+    """``python -m repro_torch.launch.train`` on the card as a child
+    process: (exit code, stdout, seconds)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--device", "cuda",
+         "--ckpt-dir", str(ckpt_dir), *args],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    if proc.returncode not in (0, 42):
+        print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n")
+    return proc.returncode, proc.stdout, secs
+
+
+def _train_log(out: str) -> dict:
+    """The launcher's step lines (loss, tok/s), its final-loss line and its
+    summary object."""
+    import re
+    steps = [(int(m.group(1)), float(m.group(2)),
+              float(m.group(3).replace(",", "")))
+             for m in re.finditer(r"\[train\] step +(\d+) loss (\S+) gnorm "
+                                  r"\S+ ([0-9,.]+) tok/s", out)]
+    final = [ln for ln in out.splitlines() if "final loss" in ln]
+    summary = out.split("[train] summary ", 1)
+    return {"steps": steps, "final": final[0] if final else None,
+            "summary": json.loads(summary[1].splitlines()[0])
+            if len(summary) == 2 else None}
+
+
+def _no_launches(summary: dict, what: str) -> None:
+    check(summary["kernel_launches"] == {"flash_attention": 0,
+                                         "ssd_scan": 0},
+          f"{what}: the training path launched a kernel "
+          f"{summary['kernel_launches']}")
+
+
+def _train_drive(arch: str, steps: int, root: Path, card: str) -> None:
+    """(g1)/(g2) the launcher at the published config: finite, falling
+    loss; the final checkpoint restored on the card, its manifest held to
+    the state's leaves."""
+    import math
+    import torch
+    from repro_torch.checkpoint import restore
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.optim import OptConfig, init_train_state
+    from repro_torch.tree import tree_paths
+    ckpt = root / arch
+    rc, out, secs = _train(["--arch", arch, "--steps", str(steps),
+                            *TRAIN_SHAPE, "--log-every", "1"], ckpt)
+    check(rc == 0, f"train {arch} exited {rc}")
+    log = _train_log(out)
+    losses = [loss for _, loss, _ in log["steps"]]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"train {arch}: losses {losses}")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    check(last < first, f"train {arch}: loss did not fall ({first} -> "
+                        f"{last})")
+    _no_launches(log["summary"], f"train {arch}")
+    cfg = get_config(arch)
+    like = init_train_state(init_params(cfg, device="cuda"), OptConfig())
+    manifest = json.loads((ckpt / f"step_{steps}" / "manifest.json")
+                          .read_text())
+    check(manifest["step"] == steps, f"{arch}: checkpoint step "
+                                     f"{manifest['step']}")
+    state = restore(ckpt, like, device="cuda")
+    n = 0
+    for path, leaf in tree_paths(state):
+        key = "::".join(str(p) for p in path)
+        want = {"shape": list(leaf.shape),
+                "dtype": str(leaf.dtype).replace("torch.", "")}
+        check(manifest["leaves"][key] == want, f"{arch} {key}: manifest "
+              f"{manifest['leaves'][key]}, state {want}")
+        check(bool(torch.isfinite(leaf.float()).all()), f"{arch} {key} not "
+                                                        f"finite")
+        n += 1
+    check(n == len(manifest["leaves"]) and int(state["step"]) == steps,
+          f"{arch}: {n} leaves restored of {len(manifest['leaves'])}")
+    tokens = 8 * 128
+    rates = [tps for s, _, tps in log["steps"] if s > 0]
+    ms = [tokens / tps * 1e3 for tps in rates]
+    sm = log["summary"]
+    print(f"[train] {arch} published config ({cfg.param_count()} "
+          f"parameters, remat {cfg.remat}, {cfg.dtype} compute, "
+          f"{cfg.param_dtype} weights), {steps} steps of 8 x 128 tokens: "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (first five "
+          f"{first:.4f}, last five {last:.4f}); {sum(ms) / len(ms):.1f} ms "
+          f"a step, {tokens * len(ms) / sum(ms) * 1e3:,.0f} tok/s (steps "
+          f"1-{steps - 1}); peak device memory "
+          f"{sm['peak_memory_bytes'] / 1e9:.3f} GB; checkpoint "
+          f"{sm['ckpt_bytes']} bytes saved in {sm['ckpt_save_s']:.3f} s, "
+          f"restored on the card ({n} leaves, step {steps}); kernel "
+          f"launches {json.dumps(sm['kernel_launches'])}; {secs:.1f} s "
+          f"with the process start ({card})")
+
+
+def _train_drill(root: Path, card: str) -> None:
+    """(g3) preempt and resume at smollm-135m's published config: the
+    resumed run's last checkpoint equals the reference run's leaf for
+    leaf, byte for byte, and its final-loss line is the same."""
+    import numpy as np
+    common = ["--arch", "smollm-135m", "--steps", str(DRILL_STEPS),
+              *TRAIN_SHAPE, "--ckpt-interval", str(DRILL_INTERVAL)]
+    rc_ref, out_ref, s_ref = _train(common, root / "ref")
+    check(rc_ref == 0, f"drill reference run exited {rc_ref}")
+    rc_kill, out_kill, s_kill = _train(
+        common + ["--kill-at", str(DRILL_KILL)], root / "run")
+    check(rc_kill == 42, f"drill killed run exited {rc_kill}, not 42")
+    rc_res, out_res, s_res = _train(common + ["--resume"], root / "run")
+    check(rc_res == 0, f"drill resumed run exited {rc_res}")
+    check(f"resumed from step {DRILL_KILL}" in out_res,
+          "drill: the resumed run did not start from the kill step")
+    ref, res = _train_log(out_ref), _train_log(out_res)
+    _no_launches(ref["summary"], "drill reference")
+    _no_launches(res["summary"], "drill resumed")
+    check(ref["final"] is not None and ref["final"] == res["final"],
+          f"drill final loss: {ref['final']} vs {res['final']}")
+    last = f"step_{DRILL_STEPS}/arrays.npz"
+    with np.load(root / "ref" / last) as a, np.load(root / "run" / last) as b:
+        check(sorted(a.files) == sorted(b.files), "drill: other leaves")
+        same = [a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
+                for k in a.files]
+        nbytes = sum(a[k].nbytes for k in a.files)
+    check(all(same), f"drill: {same.count(False)} of {len(same)} leaves "
+                     f"differ after the resume")
+    print(f"[train] drill smollm-135m published config: reference "
+          f"{DRILL_STEPS} steps (checkpoint every {DRILL_INTERVAL}), a run "
+          f"killed at step {DRILL_KILL} (exit 42), its --resume (exit 0): "
+          f"step {DRILL_STEPS}'s {len(same)} leaves ({nbytes} bytes of "
+          f"params, m, v, step) equal byte for byte; final-loss line "
+          f"'{res['final']}' in both; {s_ref:.1f} + {s_kill:.1f} + "
+          f"{s_res:.1f} s ({card})")
+
+
+def _train_compare(arch: str, dev, card: str) -> None:
+    """(g4) one ``make_train_step`` of ``arch``'s reduced config (float32)
+    on the card and on the CPU from the same weights (drawn on the CPU):
+    loss, grad_norm and every gradient within ``TRAIN_TOL``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData, to_device
+    from repro_torch.models import get_model, init_params
+    from repro_torch.optim import (OptConfig, init_train_state,
+                                   loss_and_grads, make_train_step)
+    from repro_torch.tree import tree_leaves, tree_paths
+    cfg = get_config(arch).reduced()
+    model = get_model(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(11), "cpu")
+    host = SyntheticLMData(DataConfig(batch=2, seq=32, seed=11),
+                           model_cfg=cfg).batch_at(0)
+    ocfg = OptConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+    step = make_train_step(model, ocfg)
+    out = {}
+    with _routes_held() as routes:
+        for d in ("cpu", dev):
+            batch = to_device(host, d)
+            p = _to_device(params, d)
+            (loss, _), grads = loss_and_grads(model, p, batch)
+            _, metrics = step(init_train_state(p, ocfg), batch)
+            out[str(d)] = (loss, metrics, grads)
+    (l_c, m_c, g_c), (l_g, m_g, g_g) = out["cpu"], out[str(dev)]
+    worst = 0.0
+    for name, got, want in [("loss", l_g, l_c),
+                            ("step loss", m_g["loss"], m_c["loss"]),
+                            ("grad_norm", m_g["grad_norm"],
+                             m_c["grad_norm"])] + [
+            ("grad " + "::".join(map(str, path)), g, w)
+            for (path, g), w in zip(tree_paths(g_g), tree_leaves(g_c))]:
+        e, ok = _err(got.cpu(), want, TRAIN_TOL)
+        check(ok, f"{arch} train step: {name} card != CPU (max |err| {e})")
+        worst = max(worst, e)
+    print(f"[train compare] {arch} reduced ({cfg.family}, float32): loss "
+          f"{float(l_c):.6f}, grad_norm {float(m_c['grad_norm']):.6f}; "
+          f"loss, grad_norm and {len(tree_leaves(g_c))} gradients card vs "
+          f"CPU max |err| {worst!r} (tol {TRAIN_TOL})"
+          + (f"; {routes['routings']} MoE routings held to the CPU's, "
+             f"{routes['in_band']} tokens in the dead-band"
+             if routes["routings"] else "") + f" ({card})")
+
+
+def _train_profile(dev, card: str) -> None:
+    """Where (g1)'s step goes, in this process at smollm-135m's published
+    config: step ms (host clock to a device sync) with the launcher's
+    deterministic settings and without, in turns, then one
+    ``torch.profiler`` window of two steps: kernel launches a step, device
+    busy ms a step (the sum of the kernels' own times; the profiler can
+    miss records on that host, so a floor) and the idle share, and the
+    host ops that take the most time."""
+    import statistics
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData, to_device
+    from repro_torch.launch.train import deterministic
+    from repro_torch.models import get_model, init_params
+    from repro_torch.optim import OptConfig, init_train_state, make_train_step
+    cfg = get_config("smollm-135m")
+    step = make_train_step(get_model(cfg), OptConfig())
+    state = init_train_state(init_params(cfg, device=dev), OptConfig())
+    data = SyntheticLMData(DataConfig(batch=8, seq=128), model_cfg=cfg)
+    batches = [to_device(data.batch_at(i), dev) for i in range(4)]
+
+    def run(n):
+        nonlocal state
+        out = []
+        for i in range(n):
+            sync()
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i % 4])
+            float(m["loss"])
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    run(2)
+    ms = {True: [], False: []}
+    for det in (True, False, False, True):
+        if det:
+            with deterministic():
+                ms[det] += run(4)
+        else:
+            ms[det] += run(4)
+    with deterministic(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(2)
+        wall = (time.perf_counter() - t0) * 1e3 / 2
+    events = prof.key_averages()
+    launches = sum(e.count for e in events
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx",
+                                "cuLaunchKernel")) / 2
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / 2
+    top = sorted((e for e in events if e.key.startswith(("aten::", "Mm"))),
+                 key=lambda e: -e.self_cpu_time_total)[:4]
+    print(f"[train profile] smollm-135m published config, 8 x 128 tokens a "
+          f"step: median ms a step {statistics.median(ms[True]):.1f} with "
+          f"the launcher's deterministic settings, "
+          f"{statistics.median(ms[False]):.1f} without (8 steps each, in "
+          f"turns); profiled window (deterministic, 2 steps): "
+          f"{wall:.1f} ms a step, {launches:.0f} kernel launches a step, "
+          f"device busy {busy:.1f} ms a step (profiler; a floor), idle "
+          f"share {1 - busy / wall:.3f}; most host time: "
+          + ", ".join(f"{e.key} {e.self_cpu_time_total / 1e3 / 2:.1f} ms "
+                      f"({e.count // 2} calls)" for e in top)
+          + f" a step ({card})")
+
+
+def phase_train(dev, card: str) -> None:
+    """Phase 9: the training path on the card; flash and SSD launch
+    counts read around it (the children report their own) stay 0."""
+    import shutil
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    root = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    fa.reset_launches()
+    ssd.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        for arch, steps in TRAIN_DRIVES:
+            _train_drive(arch, steps, root, card)
+        _train_profile(dev, card)
+        _train_drill(root / "drill", card)
+        for arch in TRAIN_COMPARE:
+            _train_compare(arch, dev, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counts = {**fa.LAUNCHES, **ssd.LAUNCHES}
+    check(counts == {"flash_attention": 0, "ssd_scan": 0},
+          f"the training phase launched kernels in-process: {counts}")
+    print(f"[train] phase 9: {time.perf_counter() - t0:.1f} s; flash and "
+          f"SSD launches {json.dumps(counts)} here and 0 in every child "
+          f"({card})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1599,6 +1915,7 @@ def main() -> int:
                       "grid_cold": grid_launches["cold"],
                       "grid_warm": grid_launches["warm"]}, card)
     lm_records = phase_lm(dev, card)
+    phase_train(dev, card)
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": [record, bloom_record, *lm_records]}))

@@ -19,6 +19,12 @@ taken.  Causal masking assumes that query and key positions both start
 at 0 — prefill, not decode.
 
 ``LAUNCHES`` counts kernel launches (the plain path counts nothing).
+
+The kernels have no backward, so ``flash_attention`` refuses an input
+that requires a gradient (``kernels.refuse_grad``, on every device).
+Training attends with the differentiable
+``repro_torch.models.layers.attn_forward`` (``attention_chunked``), as
+the JAX package's loss does.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, tensor_device
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 #: kernel launches since the last ``reset_launches()``
@@ -59,6 +66,9 @@ def _check(q, k, v) -> None:
 def flash_attention(q, k, v, *, causal: bool = True,
                     device: DeviceLike = None) -> torch.Tensor:
     """q: [B,Sq,Hq,D]; k/v: [B,Sk,Hkv,D] -> [B,Sq,Hq,D]."""
+    refuse_grad("flash_attention",
+                "repro_torch.models.layers.attn_forward (attention_chunked)",
+                (q, k, v))
     dev = tensor_device(q, device)
     q, k, v = (x if isinstance(x, torch.Tensor) else
                torch.as_tensor(np.asarray(x), device=dev) for x in (q, k, v))

@@ -19,6 +19,11 @@ chunk <= 256.
 
 ``LAUNCHES`` counts calls that went to the card, one per ``ssd_scan``
 (the plain path counts nothing).
+
+The kernel has no backward, so ``ssd_scan`` refuses an input that
+requires a gradient (``kernels.refuse_grad``, on every device).  Training
+computes the SSD with the differentiable
+``repro_torch.models.ssm.ssd_chunked``, as the JAX package's loss does.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, tensor_device
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.ssd.ref import ssd_scan_ref
 
 #: kernel launches since the last ``reset_launches()``
@@ -93,6 +99,8 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, initial_state=None,
              device: DeviceLike = None):
     """x: [b,s,h,p]; dt: [b,s,h]; A: [h]; B/C: [b,s,n] (single group).
     Returns (y [b,s,h,p] in x's type, final_state [b,h,p,n] float32)."""
+    refuse_grad("ssd_scan", "repro_torch.models.ssm.ssd_chunked",
+                (x, dt, A, B, C, initial_state))
     dev = tensor_device(x, device)
     x, dt, A, B, C = (t if isinstance(t, torch.Tensor) else
                       torch.as_tensor(np.asarray(t), device=dev)

@@ -9,8 +9,10 @@ block list split into a list of per-block dictionaries — ``layers``
 ``mamba_lm.py:40``, ``hybrid.py:70``), the hybrid's ``shared``
 [n_shared, ...] (``hybrid.py:71``) and the encoder-decoder's
 ``enc_layers`` [enc_layers, ...] and ``dec_layers`` [n_layers, ...]
-(``encdec.py:56,58``).  ``init_params(cfg, generator, device)`` draws the
-port's own random weights (the machine with the card has no JAX) on the
+(``encdec.py:56,58``).  ``state_from_jax(cfg, state)`` carries a whole
+JAX train state across the same way (the moments are parameter-shaped).
+``init_params(cfg, generator, device)`` draws the port's own random
+weights (the machine with the card has no JAX) on the
 generator's device: a generator on the card draws a 7e9-parameter model
 in seconds where the CPU takes minutes.  A given generator gives the same
 weights wherever they are placed; the default one (seed 0) lives on the
@@ -27,14 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.registry import get_model
-
-
-def _tree(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree(fn, v) for v in tree]
-    return fn(tree)
+from repro_torch.tree import tree_map
 
 
 def _stacks(cfg: ModelConfig) -> Dict[str, int]:
@@ -57,10 +52,25 @@ def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
     out = {}
     for k, v in tree.items():
         if k in stacks:
-            out[k] = [_tree(lambda a, i=i: leaf(np.asarray(a)[i]), v)
+            out[k] = [tree_map(lambda a, i=i: leaf(np.asarray(a)[i]), v)
                       for i in range(stacks[k])]
         else:
-            out[k] = _tree(leaf, v)
+            out[k] = tree_map(leaf, v)
+    return out
+
+
+def state_from_jax(cfg: ModelConfig, state: Dict[str, Any],
+                   device: DeviceLike = None) -> Dict[str, Any]:
+    """A JAX train state (``repro.optim.init_train_state``'s dict with
+    NumPy leaves: ``params``, ``m``, ``v``[, ``ef``], ``step``) as the
+    port's (``repro_torch.optim``) on ``device`` (``cuda`` unless asked):
+    each parameter-shaped tree through ``params_from_jax``, ``step`` an
+    int32 scalar."""
+    dev = resolve_device(device)
+    out = {k: params_from_jax(cfg, state[k], dev)
+           for k in ("params", "m", "v", "ef") if k in state}
+    out["step"] = torch.tensor(int(state["step"]), dtype=torch.int32,
+                               device=dev)
     return out
 
 
@@ -76,4 +86,4 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     params = get_model(cfg).init(gen)
     if gen.device.type == dev.type:
         return params
-    return _tree(lambda t: t.to(dev), params)
+    return tree_map(lambda t: t.to(dev), params)

@@ -15,9 +15,12 @@ keeps the JAX layout: ``k``/``v`` [L, B, Smax, Hkv, D], the cross
 attention through the flash-attention kernel: the encoder's
 self-attention (non-causal), the decoder's self-attention (causal) and
 its cross-attention (non-causal, Sq = the prompt, Sk = the frames), so
-``enc_layers + 2 * n_layers`` launches a prefill.  ``forward`` keeps the
-JAX package's plain attention in the decoder; decode is plain torch,
-its cross-attention over the whole of ``ck``/``cv``.
+``enc_layers + 2 * n_layers`` launches a prefill, under
+``torch.no_grad()``.  ``forward`` and ``loss`` reach no kernel: they keep
+the JAX package's plain, differentiable attention in the encoder
+(``encode(kernel=False)``) and the decoder, each block under
+``transformer._remat``.  Decode is plain torch, its cross-attention over
+the whole of ``ck``/``cv``.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.transformer import _remat, lm_loss
 
 F32 = torch.float32
 Params = Dict[str, Any]
@@ -75,37 +79,67 @@ class EncDecLM:
         return L.mlp_residual(lp["mlp"], lp[ln], x, self.cfg.norm_eps)
 
     # ---------------- encoder ----------------
-    def encode(self, params, frames) -> torch.Tensor:
-        """Encoder states [B, Se, d] of ``frames`` [B, Se, d]; each layer's
-        bidirectional self-attention through the flash kernel."""
+    def encode(self, params, frames, *, kernel: bool = True
+               ) -> torch.Tensor:
+        """Encoder states [B, Se, d] of ``frames`` [B, Se, d].  Each layer's
+        bidirectional self-attention goes through the flash kernel (the
+        serve path), or with ``kernel=False`` through the differentiable
+        ``layers.attn_forward``, each block under ``_remat`` (the JAX
+        package's ``encode``)."""
         cfg = self.cfg
         x = frames.to(self.cdt) @ params["frame_proj"].to(self.cdt)
-        se = x.shape[1]
-        positions = torch.arange(se, device=x.device)[None, :]
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+        def block(h, lp):
+            hn = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+            if kernel:
+                o, _, _ = L.flash_attn(lp["attn"], hn, cfg, positions,
+                                       causal=False)
+            else:
+                o = L.attn_forward(lp["attn"], hn, cfg, positions,
+                                   causal=False)
+            return self._mlp(lp, h + o, "ln2")
+
+        if not kernel:
+            block = _remat(block, cfg)
         for lp in params["enc_layers"]:
-            o, _, _ = L.flash_attn(lp["attn"],
-                                   L.rms_norm(x, lp["ln1"], cfg.norm_eps),
-                                   cfg, positions, causal=False)
-            x = self._mlp(lp, x + o, "ln2")
+            x = block(x, lp)
         return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
-    # ---------------- forward ----------------
-    def forward(self, params, batch) -> torch.Tensor:
-        """Full logits [B, S, V] (small inputs only; tests)."""
+    # ---------------- forward / train ----------------
+    def _body(self, params, batch):
+        """Encoder and decoder (plain attention, each block under
+        ``_remat``): the decoder's output [B, S, d] before the final
+        norm."""
         cfg = self.cfg
-        enc = self.encode(params, batch["frames"])
+        enc = self.encode(params, batch["frames"], kernel=False)
         x = self._embed(params, batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        for lp in params["dec_layers"]:
-            x = x + L.attn_forward(lp["attn"],
-                                   L.rms_norm(x, lp["ln1"], cfg.norm_eps),
+
+        def block(h, lp):
+            h = h + L.attn_forward(lp["attn"],
+                                   L.rms_norm(h, lp["ln1"], cfg.norm_eps),
                                    cfg, positions, causal=True)
-            x = x + L.attn_forward(lp["cross"],
-                                   L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+            h = h + L.attn_forward(lp["cross"],
+                                   L.rms_norm(h, lp["ln2"], cfg.norm_eps),
                                    cfg, positions, causal=False,
                                    kv_override=enc)
-            x = self._mlp(lp, x, "ln3")
-        return self._logits(params, x)
+            return self._mlp(lp, h, "ln3")
+
+        block = _remat(block, cfg)
+        for lp in params["dec_layers"]:
+            x = block(x, lp)
+        return x
+
+    def forward(self, params, batch) -> torch.Tensor:
+        """Full logits [B, S, V] (small inputs only; tests)."""
+        return self._logits(params, self._body(params, batch))
+
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Mean next-token cross-entropy of the decoder's tokens given the
+        ``frames`` -> (loss, {"loss", "tokens"})."""
+        return lm_loss(self._body(params, batch), params["unembed"],
+                       params["final_norm"], batch, self.cfg.norm_eps)
 
     # ---------------- serve ----------------
     def cache_spec(self, batch_size: int, max_len: int,
@@ -132,6 +166,7 @@ class EncDecLM:
         return (torch.stack([k for k, _ in kvs]),
                 torch.stack([v for _, v in kvs]))
 
+    @torch.no_grad()
     def prefill(self, params, batch, max_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Params]:
         """Encoder pass, the cross K/V, then the decoder's prompt: last-token

@@ -17,8 +17,12 @@ cache keeps the JAX layout: ``state`` [L, B, H, P, N] float32, ``conv``
 ``len``.  The prefill runs each Mamba block's scan through the SSD kernel
 (``ssm.mamba_forward``) and each shared application's causal attention
 through the flash-attention kernel: ``n_layers`` SSD calls and
-``n_layers // shared_every`` flash launches a prefill.  Decode is plain
-torch (``ssm.mamba_step``, ``layers.attn_decode_forward``).
+``n_layers // shared_every`` flash launches a prefill, under
+``torch.no_grad()``.  ``forward`` and ``loss`` reach no kernel: the
+differentiable ``ssm.ssd_chunked`` (each Mamba block under
+``transformer._remat``, as in the JAX package) and plain attention
+(``layers.attn_forward``).  Decode is plain torch (``ssm.mamba_step``,
+``layers.attn_decode_forward``).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
+from repro_torch.models.transformer import _remat, lm_loss
 
 F32 = torch.float32
 Params = Dict[str, Any]
@@ -91,22 +96,38 @@ class Zamba2LM:
             yield start, size, sp
             start += size
 
-    # ---------------- forward ----------------
-    def forward(self, params, batch) -> torch.Tensor:
-        """Full logits [B, S, V] (small inputs only; tests)."""
+    # ---------------- forward / train ----------------
+    def _body(self, params, batch):
+        """Every segment: its Mamba blocks (``ssd_chunked``, each under
+        ``_remat``), then its shared block (plain attention)."""
         cfg = self.cfg
         x = self._embed(params, batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+        def mblock(h, lp):
+            return h + ssm.mamba_forward(
+                lp["m"], L.rms_norm(h, lp["ln"], cfg.norm_eps), cfg,
+                kernel=False)
+
+        mblock = _remat(mblock, cfg)
         for start, size, sp in self._apps(params):
             for lp in params["layers"][start:start + size]:
-                x = x + ssm.mamba_forward(
-                    lp["m"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg)
+                x = mblock(x, lp)
             if sp is not None:
                 x = x + L.attn_forward(sp["attn"],
                                        L.rms_norm(x, sp["ln1"], cfg.norm_eps),
                                        cfg, positions, causal=True)
                 x = self._mlp(sp, x)
-        return self._logits(params, x)
+        return x
+
+    def forward(self, params, batch) -> torch.Tensor:
+        """Full logits [B, S, V] (small inputs only; tests)."""
+        return self._logits(params, self._body(params, batch))
+
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Mean next-token cross-entropy -> (loss, {"loss", "tokens"})."""
+        return lm_loss(self._body(params, batch), params["unembed"],
+                       params["final_norm"], batch, self.cfg.norm_eps)
 
     # ---------------- serve ----------------
     def cache_spec(self, batch_size: int, max_len: int) -> Dict[str, Any]:
@@ -129,6 +150,7 @@ class Zamba2LM:
         return L.zero_cache(self.cache_spec(batch_size, max_len),
                             resolve_device(device))
 
+    @torch.no_grad()
     def prefill(self, params, batch, max_len=None) -> Tuple[torch.Tensor,
                                                            Params]:
         """Last-token logits [B, V] and the cache: every Mamba block's SSD

@@ -5,7 +5,9 @@ Parameters are ``{"embed", "layers": [{"m": block, "ln"}, ...],
 "final_norm"[, "unembed"]}``; the cache keeps the JAX layout, ``state``
 [L, B, H, P, N] float32 and ``conv`` [L, B, W-1, conv_dim].  The prefill
 runs each block's scan through the SSD kernel (``models.ssm``), one
-launch per layer.
+launch per layer, under ``torch.no_grad()``; ``forward`` and ``loss``
+run the differentiable ``ssm.ssd_chunked`` instead, each block under
+``transformer._remat``, and reach no kernel.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
+from repro_torch.models.transformer import _remat, lm_loss
 
 F32 = torch.float32
 Params = Dict[str, Any]
@@ -55,14 +58,29 @@ class Mamba2LM:
         x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return (x @ self._unembed(params).to(self.cdt)).to(F32)
 
-    def forward(self, params, batch) -> torch.Tensor:
-        """Full logits [B, S, V] (small inputs only; tests)."""
+    def _body(self, params, batch):
+        """Every block (``ssd_chunked``, each under ``_remat``)."""
         cfg = self.cfg
+
+        def block(h, lp):
+            return h + ssm.mamba_forward(
+                lp["m"], L.rms_norm(h, lp["ln"], cfg.norm_eps), cfg,
+                kernel=False)
+
+        block = _remat(block, cfg)
         x = self._embed(params, batch["tokens"])
         for lp in params["layers"]:
-            x = x + ssm.mamba_forward(
-                lp["m"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg)
-        return self._logits(params, x)
+            x = block(x, lp)
+        return x
+
+    def forward(self, params, batch) -> torch.Tensor:
+        """Full logits [B, S, V] (small inputs only; tests)."""
+        return self._logits(params, self._body(params, batch))
+
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Mean next-token cross-entropy -> (loss, {"loss", "tokens"})."""
+        return lm_loss(self._body(params, batch), self._unembed(params),
+                       params["final_norm"], batch, self.cfg.norm_eps)
 
     # ---------------- serve ----------------
     def cache_spec(self, batch_size: int, max_len: int = 0
@@ -85,6 +103,7 @@ class Mamba2LM:
         return {name: torch.zeros(shape, dtype=dt, device=dev)
                 for name, (shape, dt) in self.cache_spec(batch_size).items()}
 
+    @torch.no_grad()
     def prefill(self, params, batch) -> Tuple[torch.Tensor, Params]:
         """Last-token logits [B, V] and the per-layer SSD states and conv
         histories."""

@@ -3,10 +3,13 @@ package's ``repro.models.ssm``: chunked SSD forward and decode step.
 
 ``ssd_reference`` (the O(S) sequential oracle) and ``ssd_chunked`` (all
 chunk states at once, then the carry) are plain torch, as in the JAX
-package.  ``mamba_forward`` — the Mamba2 prefill — calls the SSD kernel
-(``kernels.ssd.ssd_scan``) where the JAX code calls ``ssd_chunked``
-(``src/repro/models/ssm.py:168``): the CUDA kernel on the card, its plain
-version on the CPU.
+package.  ``mamba_forward`` computes the SSD in one of two ways: with
+``kernel=True`` (the default, the Mamba2 prefill) through the SSD kernel
+(``kernels.ssd.ssd_scan``: the CUDA kernel on the card, its plain version
+on the CPU), with ``kernel=False`` (``forward`` and the loss) through the
+differentiable ``ssd_chunked``, as the JAX code does
+(``src/repro/models/ssm.py:168``).  The kernel has no backward and
+refuses inputs that require a gradient.
 """
 from __future__ import annotations
 
@@ -52,7 +55,9 @@ def _step(state, x, dt, A, B, C):
 
 def ssd_chunked(x, dt, A, B, C, *, chunk: int, initial_state=None):
     """Chunked SSD with the semantics of :func:`ssd_reference`: every
-    chunk's summary state at once, then the carry across chunks."""
+    chunk's summary state at once, then the carry across chunks.  Its
+    gradient stays finite where the JAX ``ssd_chunked``'s is NaN (an
+    overflowing decay above the diagonal, ROADMAP C-ref-10)."""
     b, s_orig, h, p = x.shape
     n = B.shape[-1]
     pad = (-s_orig) % chunk
@@ -72,7 +77,11 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int, initial_state=None):
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # [b,nc,i,j,h]
     mask = torch.ones(chunk, chunk, dtype=torch.bool,
                       device=x.device).tril()[None, None, :, :, None]
-    Lmat = torch.where(mask, torch.exp(seg), torch.zeros_like(seg))
+    # exp of the masked seg (-inf above the diagonal, so 0 there): the same
+    # values as the JAX code's where(mask, exp(seg), 0), whose gradient is
+    # NaN once an above-diagonal exp(seg) overflows float32 (0 * inf;
+    # ROADMAP C-ref-10: mamba2-370m's 128-token chunks do)
+    Lmat = torch.exp(seg.masked_fill(~mask, float("-inf")))
     cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
     w = cb[..., None] * Lmat * dtc[:, :, None, :, :]
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", w, xc)
@@ -139,9 +148,12 @@ def _causal_conv(x, w, b):
 
 
 def mamba_forward(p: Params, x, cfg: ModelConfig, *, initial_state=None,
-                  conv_init=None, return_cache: bool = False):
+                  conv_init=None, return_cache: bool = False,
+                  kernel: bool = True):
     """Full-sequence Mamba2 block.  x: [B,S,d] -> [B,S,d] (and, with
-    ``return_cache``, the final SSD state and the conv history)."""
+    ``return_cache``, the final SSD state and the conv history).  The SSD
+    runs through the kernel (``ssd_scan``) unless ``kernel`` is False,
+    then through the differentiable ``ssd_chunked``."""
     b, s, d = x.shape
     di, n, nh, ph = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
     cdt = x.dtype
@@ -158,10 +170,15 @@ def mamba_forward(p: Params, x, cfg: ModelConfig, *, initial_state=None,
     dt = F.softplus(dt_raw.to(F32) + p["dt_bias"])              # [B,S,H]
     A = -torch.exp(p["A_log"])                                  # [H]
     xh = xs.reshape(b, s, nh, ph)
-    y, final_state = ssd_scan(xh.contiguous(), dt.contiguous(), A,
-                              B.contiguous(), C.contiguous(),
-                              chunk=min(cfg.ssm_chunk, s),
-                              initial_state=initial_state)
+    if kernel:
+        y, final_state = ssd_scan(xh.contiguous(), dt.contiguous(), A,
+                                  B.contiguous(), C.contiguous(),
+                                  chunk=min(cfg.ssm_chunk, s),
+                                  initial_state=initial_state)
+    else:
+        y, final_state = ssd_chunked(xh, dt, A, B, C,
+                                     chunk=min(cfg.ssm_chunk, s),
+                                     initial_state=initial_state)
     y = y + xh * p["D"].to(cdt)[:, None]
     y = y.reshape(b, s, di)
     y = gated_rms_norm(y, z, p["norm_w"], cfg.norm_eps)

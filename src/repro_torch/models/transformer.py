@@ -14,17 +14,28 @@ scalar array there); for ``vlm`` the positions count the patches too.
 
 The causal prefill sends its attention through the flash-attention kernel
 (``kernels.flash_attention``: the CUDA kernel on the card, its plain
-version on the CPU), one launch per layer.  ``forward`` keeps the JAX
-package's plain attention (``layers.attn_forward``), and decode attends
-with plain torch (``layers.attention_decode``: one query against the
-cache; the kernel's causal mask assumes query and key positions both
+version on the CPU), one launch per layer, under ``torch.no_grad()``.
+``forward`` and ``loss`` keep the JAX package's plain, differentiable
+attention (``layers.attn_forward``) and reach no kernel, and decode
+attends with plain torch (``layers.attention_decode``: one query against
+the cache; the kernel's causal mask assumes query and key positions both
 start at 0).
+
+Training (``loss``): each block runs under ``_remat`` (``cfg.remat``:
+``none``, ``full`` activation checkpointing, or ``dots``, which saves the
+activation x weight products and recomputes the rest, as JAX's
+``dots_with_no_batch_dims_saveable``), and ``chunked_ce_loss`` takes the
+cross-entropy one sequence chunk at a time, each chunk checkpointed, as
+``src/repro/models/transformer.py:23-63`` does.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -32,6 +43,70 @@ from repro_torch.models import layers as L
 
 F32 = torch.float32
 Params = Dict[str, Any]
+
+#: what ``remat="dots"`` saves: the products of a batch of activations and
+#: a weight matrix (2-D products; the batched ``bmm`` of attention and of
+#: the MoE experts is recomputed, as JAX's
+#: ``dots_with_no_batch_dims_saveable`` recomputes batched dot_generals)
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat``: ``none`` as it is; ``dots`` checkpointed
+    saving only the ``mm``/``addmm`` outputs; anything else (``full``)
+    checkpointed whole (non-reentrant)."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _DOTS)
+
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
+
+
+def chunked_ce_loss(x, unembed, labels, mask, *, chunk: int = 512,
+                    norm_w=None, eps: float = 1e-5):
+    """Memory-bounded cross-entropy over sequence chunks (``chunk`` at most
+    S, halved until it divides S), each chunk checkpointed so that no more
+    than one chunk's [B, chunk, V] logits live at once.
+
+    x: [B,S,d] (before the final norm, applied per chunk with ``norm_w``);
+    unembed: [d,V]; labels/mask: [B,S].  Logits in float32, logsumexp
+    minus the gold logit, times the mask.  Returns (mean loss, tokens)."""
+    s = x.shape[1]
+    chunk = min(chunk, s)
+    while s % chunk:
+        chunk //= 2
+
+    def body(xi, li, mi):
+        if norm_w is not None:
+            xi = L.rms_norm(xi, norm_w, eps)
+        logits = (xi @ unembed.to(xi.dtype)).to(F32)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
+        return ((lse - gold) * mi).sum(), mi.sum()
+
+    tot = cnt = torch.zeros((), dtype=F32, device=x.device)
+    for i in range(0, s, chunk):
+        nll, n = checkpoint(body, x[:, i:i + chunk], labels[:, i:i + chunk],
+                            mask[:, i:i + chunk], use_reentrant=False)
+        tot, cnt = tot + nll, cnt + n
+    return tot / torch.clamp(cnt, min=1.0), cnt
+
+
+def lm_loss(x, unembed, final_norm, batch, eps: float):
+    """The families' shared loss tail: ``chunked_ce_loss`` of the body's
+    output ``x`` against ``batch["labels"]`` (``batch["mask"]``, else all
+    ones) -> (loss, {"loss", "tokens"})."""
+    labels, mask = batch["labels"], batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=F32, device=x.device)
+    loss, cnt = chunked_ce_loss(x, unembed, labels, mask, norm_w=final_norm,
+                                eps=eps)
+    return loss, {"loss": loss, "tokens": cnt}
 
 
 class TransformerLM:
@@ -98,20 +173,41 @@ class TransformerLM:
         x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return (x @ self._unembed(params).to(self.cdt)).to(F32)
 
-    # ---------------- forward ----------------
+    # ---------------- forward / train ----------------
+    def _body(self, params, x):
+        """Every layer (plain attention, each block under ``_remat``)."""
+        cfg = self.cfg
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+
+        def block(h, lp):
+            h = h + L.attn_forward(lp["attn"],
+                                   L.rms_norm(h, lp["ln1"], cfg.norm_eps),
+                                   cfg, positions, causal=True)
+            return h + self._ffn(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps))
+
+        block = _remat(block, cfg)
+        for lp in params["layers"]:
+            x = block(x, lp)
+        return x
+
     def forward(self, params, batch) -> torch.Tensor:
         """Full logits [B, S, V] (small inputs only; tests)."""
-        cfg = self.cfg
-        x = self._embed_inputs(params, batch)
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        for lp in params["layers"]:
-            x = x + L.attn_forward(lp["attn"],
-                                   L.rms_norm(x, lp["ln1"], cfg.norm_eps),
-                                   cfg, positions, causal=True)
-            x = x + self._ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps))
-        return self._logits(params, x)
+        return self._logits(params,
+                            self._body(params, self._embed_inputs(params,
+                                                                  batch)))
+
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Mean next-token cross-entropy of ``batch`` (tokens, labels[,
+        mask][, patch_embeds]) -> (loss, {"loss", "tokens"}); for ``vlm``
+        over the text positions only."""
+        x = self._body(params, self._embed_inputs(params, batch))
+        if self.cfg.family == "vlm":
+            x = x[:, -batch["labels"].shape[1]:]
+        return lm_loss(x, self._unembed(params), params["final_norm"], batch,
+                       self.cfg.norm_eps)
 
     # ---------------- serve ----------------
+    @torch.no_grad()
     def prefill(self, params, batch, max_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Params]:
         """Process the whole prompt; return last-token logits [B, V] and

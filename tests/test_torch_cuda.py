@@ -12,7 +12,9 @@ Tolerances: none for the simulator's kernels.  Subset-DP products are
 compared byte for byte and argmins exactly; Bloom indications exactly; the
 exhaustive simulator results on the card equal the CPU's field for field.
 The LM kernels are float32 arithmetic in another summation order: each
-test states its tolerance.  The grid layer on the card (an exhaustive
+test states its tolerance.  Both kernels refuse inputs that require a
+gradient, and a reduced train step (which reaches no kernel) on the card
+equals the CPU's at 1e-4.  The grid layer on the card (an exhaustive
 penalty grid, a store round trip) equals the CPU's field for field.
 """
 import dataclasses
@@ -527,3 +529,69 @@ def test_moe_forward_card_equals_cpu(card, moe_mode):
     torch.testing.assert_close(L.moe_forward(pg, x.to(card), cfg).cpu(),
                                L.moe_forward(p, x, cfg), rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_grad_on_card(card):
+    """Neither kernel has a backward: on the card, as on the CPU, an input
+    that requires a gradient raises (its output would carry none), and
+    the same call under ``torch.no_grad()`` launches the kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    g = torch.Generator(card).manual_seed(0)
+    q = torch.randn(1, 64, 4, 64, device=card, generator=g)
+    k = torch.randn(1, 64, 2, 64, device=card, generator=g)
+    x = torch.randn(1, 64, 2, 64, device=card, generator=g)
+    dt = torch.rand(1, 64, 2, device=card, generator=g) * 0.1
+    A = -torch.rand(2, device=card, generator=g)
+    B = torch.randn(1, 64, 16, device=card, generator=g)
+    fa.reset_launches()
+    ssd.reset_launches()
+    for t in (q, x):
+        t.requires_grad_(True)
+    with pytest.raises(ValueError, match="attn_forward"):
+        fa.flash_attention(q, k, k, causal=True)
+    with pytest.raises(ValueError, match="ssd_chunked"):
+        ssd.ssd_scan(x, dt, A, B, B, chunk=32)
+    assert fa.LAUNCHES["flash_attention"] == ssd.LAUNCHES["ssd_scan"] == 0
+    with torch.no_grad():
+        fa.flash_attention(q, k, k, causal=True)
+        ssd.ssd_scan(x, dt, A, B, B, chunk=32)
+    assert fa.LAUNCHES["flash_attention"] == ssd.LAUNCHES["ssd_scan"] == 1
+
+
+@pytest.mark.cuda
+def test_reduced_train_step_card_equals_cpu(card):
+    """One ``make_train_step`` of the reduced smollm-135m (float32) on the
+    card and on the CPU from the same weights: loss, grad_norm and every
+    gradient at 1e-4; no kernel launched.  (The updated parameters are
+    not compared: AdamW's first step moves each by lr * sign(g), and
+    where a gradient is ~0 rounding decides its sign.)"""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData, to_device
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    from repro_torch.models import get_model, init_params
+    from repro_torch.optim import (OptConfig, init_train_state,
+                                   loss_and_grads, make_train_step)
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config("smollm-135m").reduced()
+    model = get_model(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    host = SyntheticLMData(DataConfig(batch=2, seq=32), cfg).batch_at(0)
+    ocfg = OptConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+    fa.reset_launches()
+    ssd.reset_launches()
+    out = []
+    for dev in ("cpu", card):
+        batch = to_device(host, dev)
+        p = tree_map(lambda t: t.to(dev), params)
+        (loss, _), grads = loss_and_grads(model, p, batch)
+        _, metrics = make_train_step(model, ocfg)(init_train_state(p, ocfg),
+                                                  batch)
+        out.append((loss, metrics["grad_norm"], grads))
+    assert fa.LAUNCHES["flash_attention"] == ssd.LAUNCHES["ssd_scan"] == 0
+    for want, got in zip(out[0][:2], out[1][:2]):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for want, got in zip(tree_leaves(out[0][2]), tree_leaves(out[1][2])):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

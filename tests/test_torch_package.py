@@ -65,7 +65,11 @@ def test_port_imports_neither_jax_nor_reference():
                  "repro_torch.cachesim.store",
                  "repro_torch.cachesim.tracefiles",
                  "repro_torch.cachesim.topology",
-                 "repro_torch.tools.store_tool"):
+                 "repro_torch.tools.store_tool", "repro_torch.tree",
+                 "repro_torch.optim.adamw", "repro_torch.data.pipeline",
+                 "repro_torch.checkpoint.ckpt",
+                 "repro_torch.distributed.compression",
+                 "repro_torch.distributed.ft", "repro_torch.launch.train"):
         assert name in mods, name
     code = (
         "import importlib, sys\n"
