@@ -122,7 +122,27 @@ Phases, each failing the run on any mismatch:
      child) all 0; and where (g1)'s step goes (in this process: step ms
      with the launcher's deterministic settings and without, in turns,
      and a profiler window's kernel launches, device busy time and idle
-     share a step).
+     share a step);
+ 10. the device mesh (``repro_torch.launch.mesh``, ``distributed``):
+     (h1) ``launch.train --mesh elastic`` at smollm-135m's published
+     config, world 1 on NCCL, 5 steps of 8 x 128, against ``--mesh
+     none`` (losses within 1e-5 relative; bit-equality printed); (h2) the
+     same at ``--model-dim 2`` on two ranks of card 0 over gloo under
+     ``torch.distributed.run`` (losses within 1e-4 of (h1), final params
+     within 2e-4), then its ``--resume`` at world 1, model dim 1: every
+     leaf saved again byte for byte; ms a step, peak memory a rank; (h3)
+     ``compressed_psum`` over smollm-135m's gradient size (seeded draws)
+     on those two ranks: within the bound of the float all-reduce,
+     bit-equal to a 2-rank CPU gloo world, bytes on the wire, seconds;
+     (h4) MoE expert parallelism at granite-moe-3b-a800m's widths cut to
+     4 of 32 layers, float32, on (1, 2) over gloo: loss and gradient
+     norm within 2e-3 of the world-1 dispatch path in this process,
+     expert parallelism taken in every layer; (h5) the ``("cells",)``
+     sweep mesh on two ranks: (a)'s DS_PGM grid over miss_penalty (its
+     stacked build sharded) and (e)'s exhaustive grid, field for field
+     equal to ``mesh=None`` on one rank, each rank's subset-DP launches
+     equal to the single rank's.  ``python3 chip_smoke.py --phase 10``
+     runs phases 1, 6 and 10 alone and prints no result.
 
 TF32 is off for matrix products (``torch.backends.cuda.matmul``, the
 default) and for cuDNN (``torch.backends.cudnn``, on by default), so that
@@ -928,7 +948,7 @@ def _store_bytes(store) -> dict:
 
 def phase_grid(dev, cfg_b, res_b, card: str) -> dict:
     """Phase 6: ``run_grid`` at paper scale, cold then warm on one store;
-    returns the subset-DP launches of each run."""
+    returns the subset-DP launches of each run and the cold grid."""
     import tempfile
     import repro_torch.cachesim.systemstate as systemstate
     from repro_torch.cachesim import ArtifactStore, RunReport, get_trace, \
@@ -983,7 +1003,7 @@ def phase_grid(dev, cfg_b, res_b, card: str) -> dict:
     print(f"[grid] one sweep for {len(GRID_PENALTIES)} cells; the 100.0 "
           f"cell equals slice (b) field for field; the warm run computed no "
           f"sweep, launched no kernel and returned identical results")
-    return launches
+    return launches, cold
 
 
 def phase_topology(dev, card: str) -> None:
@@ -1890,6 +1910,404 @@ def phase_train(dev, card: str) -> None:
           f"({card})")
 
 
+# ---------------------------------------------------------------------------
+# the device mesh (phase 10)
+# ---------------------------------------------------------------------------
+
+#: (h1)/(h2): smollm-135m's published config, steps of 8 x 128 tokens
+MESH_STEPS = 5
+#: (h1) elastic world 1 vs --mesh none; (h2) two ranks vs (h1)
+MESH_TOL_H1, MESH_TOL_H2, MESH_PARAM_TOL = 1e-5, 1e-4, 2e-4
+#: (h3) seed of the gradients' draws (rank r draws with seed + r)
+COMP_SEED = 1900
+#: (h4) granite-moe-3b-a800m's published widths cut to this many layers,
+#: a batch of 2 x 256 tokens, float32, capacity factor 8
+MOE_LAYERS, MOE_BATCH, MOE_SEQ, MOE_CAP, MOE_TOL = 4, 2, 256, 8.0, 2e-3
+MOE_SEED = 19
+
+
+def _mesh_dir() -> Path:
+    return ROOT / "build" / "chip_smoke_mesh"
+
+
+def _torchrun(nproc: int, args, ckpt_dir: Path):
+    """``launch.train`` under ``torch.distributed.run`` (``nproc`` ranks on
+    this host, all on card 0): (exit code, stdout, seconds)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(nproc), "-m", "repro_torch.launch.train",
+         "--device", "cuda", "--ckpt-dir", str(ckpt_dir), *args],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n")
+    return proc.returncode, proc.stdout, secs
+
+
+def _ckpt_arrays(ckpt: Path, step: int) -> dict:
+    import numpy as np
+    with np.load(ckpt / f"step_{step}" / "arrays.npz") as data:
+        return {k: data[k] for k in data.files}
+
+
+def _rel(a, b) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def _mesh_train(root: Path, card: str) -> None:
+    """(h1) elastic at world 1 on NCCL vs --mesh none; (h2) two ranks on
+    card 0 over gloo at model dim 2, then --resume at world 1."""
+    import numpy as np
+    common = ["--arch", "smollm-135m", "--steps", str(MESH_STEPS),
+              *TRAIN_SHAPE, "--log-every", "1"]
+    runs = {}
+    for tag, extra in (("none", []), ("h1", ["--mesh", "elastic"])):
+        rc, out, secs = _train(common + extra, root / tag)
+        check(rc == 0, f"mesh {tag}: the launcher exited {rc}")
+        runs[tag] = (_train_log(out)["summary"], secs)
+    (none, _), (h1, h1_s) = runs["none"], runs["h1"]
+    check(h1["mesh"] == {"data": 1, "model": 1}, f"h1 mesh {h1['mesh']}")
+    rel = _rel(h1["losses"], none["losses"])
+    check(len(h1["losses"]) == MESH_STEPS and rel <= MESH_TOL_H1,
+          f"h1 losses {h1['losses']} vs {none['losses']}")
+    print(f"[mesh h1] launch.train --mesh elastic, world 1 on NCCL, "
+          f"smollm-135m published, {MESH_STEPS} steps of 8 x 128: losses "
+          f"{h1['losses']} vs --mesh none {none['losses']}: max relative "
+          f"difference {rel!r} (tol {MESH_TOL_H1}); bit-equal "
+          f"{h1['losses'] == none['losses']}; "
+          f"{1e3 * sum(h1['step_s'][1:]) / (MESH_STEPS - 1):.1f} ms a step "
+          f"(--mesh none {1e3 * sum(none['step_s'][1:]) / (MESH_STEPS - 1):.1f}"
+          f"); peak memory {h1['peak_memory_bytes']} bytes; {h1_s:.1f} s "
+          f"with the process start ({card})")
+
+    rc, out, secs = _torchrun(2, common + ["--mesh", "elastic",
+                                           "--model-dim", "2",
+                                           "--backend", "gloo"], root / "h2")
+    check(rc == 0, f"h2: torch.distributed.run exited {rc}")
+    h2 = _train_log(out)["summary"]
+    peak1 = [int(ln.split()[-1]) for ln in out.splitlines()
+             if ln.startswith("[train] rank 1 peak_memory_bytes")]
+    check(h2["mesh"] == {"data": 1, "model": 2} and len(peak1) == 1,
+          f"h2 mesh {h2['mesh']}, rank-1 lines {peak1}")
+    rel2 = _rel(h2["losses"], h1["losses"])
+    check(rel2 <= MESH_TOL_H2, f"h2 losses {h2['losses']} vs h1 "
+                               f"{h1['losses']}")
+    a, b = (_ckpt_arrays(root / t, MESH_STEPS) for t in ("h2", "h1"))
+    worst = 0.0
+    for k in b:
+        if k.startswith("params::"):
+            x, y = a[k].astype(np.float64), b[k].astype(np.float64)
+            check(np.allclose(x, y, rtol=MESH_PARAM_TOL, atol=MESH_PARAM_TOL),
+                  f"h2 {k}: max |diff| {np.abs(x - y).max()}")
+            worst = max(worst, float(np.abs(x - y).max()))
+    step_ms = 1e3 * sum(h2["step_s"][1:]) / (MESH_STEPS - 1)
+    print(f"[mesh h2] two ranks on card 0 over gloo, (1, 2) mesh: losses "
+          f"{h2['losses']}, max relative difference to h1 {rel2!r} (tol "
+          f"{MESH_TOL_H2}); bit-equal {h2['losses'] == h1['losses']}; final "
+          f"params max |h2 - h1| {worst!r} (tol {MESH_PARAM_TOL}); "
+          f"{step_ms:.1f} ms a step; peak memory a rank "
+          f"[{h2['peak_memory_bytes']}, {peak1[0]}] bytes; {secs:.1f} s "
+          f"with the processes' start ({card})")
+    saved = _ckpt_arrays(root / "h2", MESH_STEPS)
+    rc, out, secs = _train(["--arch", "smollm-135m", "--steps",
+                            str(MESH_STEPS), *TRAIN_SHAPE, "--mesh",
+                            "elastic", "--model-dim", "1", "--resume"],
+                           root / "h2")
+    check(rc == 0 and f"[train] resumed from step {MESH_STEPS}" in out,
+          f"h2 resume exited {rc}")
+    again = _ckpt_arrays(root / "h2", MESH_STEPS)
+    check(sorted(again) == sorted(saved), "h2 resume: other leaves")
+    for k, arr in saved.items():
+        check(arr.dtype == again[k].dtype and
+              arr.tobytes() == again[k].tobytes(),
+              f"h2 resume: leaf {k} differs")
+    print(f"[mesh h2] --resume at world 1, model dim 1 (NCCL) from the "
+          f"two-rank checkpoint: {len(saved)} leaves restored onto the new "
+          f"mesh and saved again, equal byte for byte; {secs:.1f} s "
+          f"({card})")
+
+
+def _h3_world(rank, world, out_dir, numel, device):
+    """(h3) ``compressed_psum`` of seeded draws on ``device``: rank 0
+    writes the result's digest, its error against the float all-reduce,
+    the global absmax and the seconds of each."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.compression import compressed_psum
+    gen = torch.Generator().manual_seed(COMP_SEED + rank)
+    x = torch.randn(numel, generator=gen).to(device)
+
+    def timed(fn):
+        dist.barrier()
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    out, comp_s = timed(lambda: compressed_psum(x))
+    ref = x.clone()
+    _, float_s = timed(lambda: dist.all_reduce(ref))
+    err = (out - ref).abs().max()
+    amax = x.abs().max()
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+    if rank == 0:
+        digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+        (Path(out_dir) / f"h3_{device}.json").write_text(json.dumps({
+            "sha256": digest, "err": float(err), "absmax": float(amax),
+            "comp_s": comp_s, "float_s": float_s}))
+
+
+def _mesh_psum(root: Path, card: str) -> None:
+    """(h3) the int8 all-reduce over smollm-135m's gradient size on two
+    ranks of card 0 over gloo, and on two CPU ranks: the same bits."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.compression import wire_bytes
+    from repro_torch.launch.mesh import run_world
+    numel = get_config("smollm-135m").param_count()
+    t0 = time.perf_counter()
+    for device, backend in (("cuda", "gloo"), ("cpu", "gloo")):
+        run_world(_h3_world, 2, root / f"h3_{device}.store",
+                  args=(str(root), numel, device), device=device,
+                  backend=backend, timeout=600)
+    secs = time.perf_counter() - t0
+    cuda, cpu = (json.loads((root / f"h3_{d}.json").read_text())
+                 for d in ("cuda", "cpu"))
+    bound = cuda["absmax"] / 127.0 * 2
+    check(cuda["err"] <= bound * 1.05,
+          f"h3: |compressed - float| {cuda['err']} > bound {bound}")
+    check(cuda["sha256"] == cpu["sha256"],
+          "h3: the card's result differs from the CPU world's")
+    w = wire_bytes(numel)
+    nominal = w["int8_payload"] + w["scales"]
+    print(f"[mesh h3] compressed_psum of {numel} float32 values (smollm-135m's "
+          f"gradient size, seeded draws) on two ranks of card 0 over gloo: "
+          f"max |int8 - float all-reduce| {cuda['err']!r} (bound "
+          f"{bound * 1.05!r}); bit-equal to the 2-rank CPU gloo world "
+          f"(sha256 {cuda['sha256'][:16]}); bytes sent {w['sent']} (the "
+          f"int32 SUM buffer {w['int32_buffer']} + scales {w['scales']}) vs "
+          f"{w['float32']} float32 bytes ({w['sent'] / w['float32']:.4f}x); "
+          f"nominal int8 payload {nominal} ({w['float32'] / nominal:.2f}x "
+          f"fewer, not what the collective carries); {cuda['comp_s']:.3f} s "
+          f"vs float all-reduce {cuda['float_s']:.3f} s "
+          f"({cuda['comp_s'] / cuda['float_s']:.2f}x slower; CPU world "
+          f"{cpu['comp_s']:.3f} s); both worlds {secs:.1f} s ({card})")
+
+
+def _moe_cfg():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(
+        get_config("granite-moe-3b-a800m"), n_layers=MOE_LAYERS,
+        moe_mode="dispatch", capacity_factor=MOE_CAP, dtype="float32",
+        remat="none", seq_parallel=True)
+
+
+def _moe_loss(mesh=None):
+    """(loss, global grad norm, seconds, whether expert parallelism ran)
+    of (h4)'s config, its weights drawn on card 0 from ``MOE_SEED``."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLMData, to_device
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import get_model, init_params
+    from repro_torch.models import layers
+    from repro_torch.optim import global_norm, loss_and_grads
+    cfg = _moe_cfg()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(MOE_SEED),
+                         "cuda")
+    batch = to_device(SyntheticLMData(DataConfig(
+        batch=MOE_BATCH, seq=MOE_SEQ, vocab=256), cfg).batch_at(0), "cuda")
+    rules = None
+    if mesh is not None:
+        params = sh.distribute(params, mesh, sh.param_shardings(
+            mesh, params, cfg.tie_embeddings))
+        rules = sh.MeshRules(mesh, ("data",))
+    ep = []
+    inner = layers._moe_shardmap
+
+    def recorded(*a, **k):
+        out = inner(*a, **k)
+        ep.append(out is not None)
+        return out
+    layers._moe_shardmap = recorded
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sh.activation_rules(rules):
+            (loss, _), grads = loss_and_grads(get_model(cfg), params, batch)
+        gn = global_norm(grads)
+        torch.cuda.synchronize()
+    finally:
+        layers._moe_shardmap = inner
+    return float(loss), float(gn), time.perf_counter() - t0, ep
+
+
+def _h4_world(rank, world, out_dir):
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, world), ("data", "model"))
+    loss, gn, secs, ep = _moe_loss(mesh)
+    if rank == 0:
+        (Path(out_dir) / "h4.json").write_text(json.dumps({
+            "loss": loss, "gnorm": gn, "secs": secs, "ep": ep,
+            "peak": torch.cuda.max_memory_allocated()}))
+
+
+def _mesh_moe(root: Path, card: str) -> None:
+    """(h4) MoE expert parallelism on (1, 2) over gloo on card 0 against
+    the world-1 dispatch path in this process."""
+    import math
+    from repro_torch.launch.mesh import run_world
+    t0 = time.perf_counter()
+    run_world(_h4_world, 2, root / "h4.store", args=(str(root),),
+              device="cuda", backend="gloo", timeout=600)
+    world_s = time.perf_counter() - t0
+    got = json.loads((root / "h4.json").read_text())
+    loss, gn, secs, ep = _moe_loss()
+    check(got["ep"] == [True] * MOE_LAYERS and not any(ep),
+          f"h4: expert parallelism ran {got['ep']} on the mesh, {ep} alone")
+    check(math.isfinite(got["gnorm"]) and got["gnorm"] > 0,
+          f"h4: gradient norm {got['gnorm']}")
+    rel = abs(got["loss"] - loss) / abs(loss)
+    check(rel <= MOE_TOL, f"h4: loss {got['loss']} vs {loss}")
+    rel_g = abs(got["gnorm"] - gn) / gn
+    check(rel_g <= MOE_TOL, f"h4: gradient norm {got['gnorm']} vs {gn}")
+    cfg = _moe_cfg()
+    print(f"[mesh h4] granite-moe-3b-a800m widths (d {cfg.d_model}, "
+          f"{cfg.n_experts} experts padded to {cfg.n_experts_padded}, top-"
+          f"{cfg.topk}), {MOE_LAYERS} of 32 layers, float32, {MOE_BATCH} x "
+          f"{MOE_SEQ} tokens, capacity {MOE_CAP}: expert-parallel loss on "
+          f"(1, 2) over gloo {got['loss']!r} vs world-1 dispatch {loss!r}, "
+          f"relative {rel!r} (tol {MOE_TOL}); gradient norm {got['gnorm']!r}"
+          f" vs {gn!r}, relative {rel_g!r} (tol {MOE_TOL}); loss and "
+          f"backward {got['secs']:.3f} s a rank (world 1 {secs:.3f} s); "
+          f"peak memory rank 0 {got['peak']} bytes; "
+          f"world {world_s:.1f} s with the processes' start ({card})")
+
+
+def _grid_fields(grid) -> dict:
+    return {key: {p: (dataclasses.asdict(r), r.to_dict())
+                  for p, r in cell.items()} for key, cell in grid.items()}
+
+
+def _h5_world(rank, world, out_dir):
+    """(h5) (a)'s DS_PGM grid and (b)'s exhaustive grid on the sweep
+    mesh; each rank writes its results and its subset-DP launches."""
+    import pickle
+
+    import torch
+    from repro_torch.cachesim import SimConfig, get_trace, run_grid
+    from repro_torch.core import batched
+    from repro_torch.kernels.subsetdp import ops
+    from repro_torch.launch.mesh import make_sweep_mesh
+    mesh = make_sweep_mesh()
+    trace = get_trace("gradle", N_REQUESTS, seed=0)
+    calls = []
+    inner = batched._cells_sharded
+
+    def counted(*a, **k):
+        calls.append(1)
+        return inner(*a, **k)
+    batched._cells_sharded = counted
+    out = {"mesh": tuple(mesh.shape)}
+    for tag, cfg, pol in (
+            ("a", SimConfig(n_caches=3, costs=(1.0, 2.0, 3.0),
+                            alg="ds_pgm", **PAPER), ("pi", "fno", "fna")),
+            ("e", SimConfig(n_caches=8, costs=(1.0, 2.0, 3.0, 1.5) * 2,
+                            alg="exhaustive", **PAPER), ("fno", "fna", "pi"))):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = run_grid({"gradle": trace}, cfg, "miss_penalty",
+                        GRID_PENALTIES, policies=pol, device="cuda",
+                        mesh=mesh)
+        torch.cuda.synchronize()
+        out[tag] = {"secs": time.perf_counter() - t0,
+                    "launches": ops.LAUNCHES["subset_argmin"],
+                    "sharded": len(calls), "grid": _grid_fields(grid)}
+        calls.clear()
+    (Path(out_dir) / f"h5_{rank}.pkl").write_bytes(pickle.dumps(out))
+
+
+def _mesh_grid(root: Path, grid_e, launches_e: int, dev, card: str) -> None:
+    """(h5) the sweep mesh on two ranks of card 0 over gloo, held field
+    for field to ``mesh=None`` on one rank (this process; (e)'s from
+    phase 6's cold grid)."""
+    import pickle
+    from repro_torch.cachesim import SimConfig, get_trace, run_grid
+    from repro_torch.kernels.subsetdp import ops
+    from repro_torch.launch.mesh import run_world
+    t0 = time.perf_counter()
+    run_world(_h5_world, 2, root / "h5.store", args=(str(root),),
+              device="cuda", backend="gloo", timeout=600)
+    world_s = time.perf_counter() - t0
+    trace = get_trace("gradle", N_REQUESTS, seed=0)
+    cfg_a = SimConfig(n_caches=3, costs=(1.0, 2.0, 3.0), alg="ds_pgm",
+                      **PAPER)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    grid_a = run_grid({"gradle": trace}, cfg_a, "miss_penalty",
+                      GRID_PENALTIES, policies=("pi", "fno", "fna"),
+                      device=dev)
+    sync()
+    alone_s = time.perf_counter() - t0
+    launches_a = ops.LAUNCHES["subset_argmin"]
+    want = {"a": (_grid_fields(grid_a), launches_a),
+            "e": (_grid_fields(grid_e), launches_e)}
+    for rank in range(2):
+        got = pickle.loads((root / f"h5_{rank}.pkl").read_bytes())
+        check(got["mesh"] == (2,), f"h5 rank {rank}: mesh {got['mesh']}")
+        for tag, (fields, launches) in want.items():
+            check(got[tag]["grid"] == fields,
+                  f"h5 rank {rank} ({tag}): results != mesh=None")
+            check(got[tag]["launches"] == launches,
+                  f"h5 rank {rank} ({tag}): subset_argmin launches "
+                  f"{got[tag]['launches']}, mesh=None {launches}")
+        check(got["a"]["sharded"] >= 1,
+              f"h5 rank {rank}: the DS_PGM build was not sharded")
+        print(f"[mesh h5] rank {rank} of the (2,) cells mesh over gloo: "
+              f"(a) n=3 DS_PGM grid {got['a']['secs']:.3f} s, its stacked "
+              f"build sharded ({got['a']['sharded']} call), subset_argmin "
+              f"launches {got['a']['launches']}; (e) n=8 exhaustive grid "
+              f"{got['e']['secs']:.3f} s, unsharded, subset_argmin launches "
+              f"{got['e']['launches']} (mesh=None: {launches_e}); both "
+              f"grids equal mesh=None field for field ({card})")
+    print(f"[mesh h5] miss_penalty {GRID_PENALTIES}, {N_REQUESTS} gradle "
+          f"requests: (a) on one rank without a mesh {alone_s:.3f} s; the "
+          f"two-rank world {world_s:.1f} s with the processes' start "
+          f"({card})")
+
+
+def phase_mesh(dev, grid_e, launches_e: int, card: str) -> None:
+    """Phase 10: the device mesh — the launcher on meshes (h1, h2), the
+    int8 all-reduce (h3), MoE expert parallelism (h4), the sweep mesh
+    (h5)."""
+    import shutil
+    root = _mesh_dir()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        _mesh_train(root, card)
+        _mesh_psum(root, card)
+        _mesh_moe(root, card)
+        _mesh_grid(root, grid_e, launches_e, dev, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[mesh] phase 10: {time.perf_counter() - t0:.1f} s; carried "
+          f"over gloo on card 0's tensors: all_reduce SUM float32 (h2's "
+          f"norm, h3's float reference), MAX float32 and SUM int32 (h3), "
+          f"all_gather_into_tensor (h2's parameter gathers and checkpoint, "
+          f"h4's token blocks, h5's table rows), all_to_all_single (h4), "
+          f"barrier; over NCCL at world 1 (h1, h2's resume) only barrier: "
+          f"a one-rank mesh dim issues no gather or reduce ({card})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1903,12 +2321,23 @@ def main() -> int:
     card = card_line()
     t_all = time.perf_counter()
     phase_build(card)
+    if sys.argv[1:] == ["--phase", "10"]:     # the mesh phase alone
+        from repro_torch.cachesim import SimConfig, get_trace, run_policies
+        cfg_b = SimConfig(n_caches=8, costs=(1.0, 2.0, 3.0, 1.5) * 2,
+                          alg="exhaustive", **PAPER)
+        res_b = run_policies(get_trace("gradle", N_REQUESTS, seed=0), cfg_b,
+                             ("fno", "fna", "pi"), device=dev)
+        grid_launches, grid_cold = phase_grid(dev, cfg_b, res_b, card)
+        phase_mesh(dev, grid_cold, grid_launches["cold"], card)
+        print(f"[done] {time.perf_counter() - t_all:.1f} s; phases 1, 6 "
+              f"and 10 only: no result")
+        return 1
     phase_kernel_checks(dev)
     st_b, cfg_b, res_b, launches = phase_slice(dev, card)
     bloom_record = phase_router(dev, st_b, cfg_b, card)
     phase_serve()
     phase_golden(dev, card)
-    grid_launches = phase_grid(dev, cfg_b, res_b, card)
+    grid_launches, grid_cold = phase_grid(dev, cfg_b, res_b, card)
     phase_topology(dev, card)
     record = phase_kernel_times(
         st_b, cfg_b, {"slice_b": launches["subset_argmin"],
@@ -1916,6 +2345,7 @@ def main() -> int:
                       "grid_warm": grid_launches["warm"]}, card)
     lm_records = phase_lm(dev, card)
     phase_train(dev, card)
+    phase_mesh(dev, grid_cold, grid_launches["cold"], card)
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": [record, bloom_record, *lm_records]}))

@@ -11,8 +11,9 @@ configuration (``sweep``), the named experiment configurations and their
 golden sub-grids (``scenarios``), the content-addressed artifact store
 (``store``), file-backed traces (``tracefiles``) and PATH/TREE
 hierarchies of tier nodes (``topology``).  Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``; the reference's device mesh is
-not ported (one card, ``mesh=None``).
+unless the caller passes ``device="cpu"``; ``run_cells`` / ``run_grid``
+take a 1-D ``("cells",)`` ``DeviceMesh`` (``launch.mesh.make_sweep_mesh``)
+over which the DS_PGM table build's cell axis is sharded.
 """
 from repro_torch.cachesim.engine import (
     DecisionPlan,

@@ -39,9 +39,13 @@ in plan inputs share ONE sweep, and their table builds stack into one
 batched call per provider family.  :func:`run_cells` also consults the
 content-addressed artifact store (``repro_torch.cachesim.store``): stored
 sweeps hydrate onto the run's device, stored tables load onto it, and
-new ones are saved after the replays.  The reference's device mesh (the
-cell axis sharded over several devices) is not ported: the port runs on
-one card and takes ``mesh=None`` only (ROADMAP A5).
+new ones are saved after the replays.  With a device mesh (a 1-D
+``("cells",)`` ``DeviceMesh``; ``launch.mesh.make_sweep_mesh``, made
+when ``mesh=None`` and the process world has more than one rank) the
+DS_PGM stacked build shards its cell axis over the ranks
+(``core.batched.selection_tables_cells(mesh=)``); the exhaustive and
+HOCS stacks run unsharded on every rank, as in the reference, and every
+rank replays every cell.
 """
 from __future__ import annotations
 
@@ -314,12 +318,19 @@ def table_keys_for(cfgs: Sequence, policies: Sequence[str]):
     return keys
 
 
-def check_mesh(mesh) -> None:
-    """The port runs a grid on one device: ``mesh`` must be None."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: sharding the cell axis over a device mesh is not ported "
-            "(ROADMAP A5); the port runs on one device, pass mesh=None")
+def resolve_mesh(mesh):
+    """``mesh`` itself (a ``DeviceMesh``), or for None the sweep mesh over
+    the process world (None at a world of one rank); anything else raises
+    ``TypeError``."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.launch.mesh import make_sweep_mesh
+    if mesh is None:
+        return make_sweep_mesh()
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch DeviceMesh or None, not "
+                        f"{type(mesh).__name__}")
+    return mesh
 
 
 def _plan_jobs(system, cfgs, policies, plan_cls):
@@ -376,10 +387,11 @@ def _prefetch_hocs(system, cfgs, policies) -> None:
                                                  device=system.device)
 
 
-def _prefetch_ds_pgm(system, cfgs, policies) -> None:
+def _prefetch_ds_pgm(system, cfgs, policies, mesh=None) -> None:
     """Stack DS_PGM table builds across decision cells into one two-stage
     ``selection_tables_cells`` evaluation (one sort per (costs, fno)
-    group, one penalty finish per cell)."""
+    group, one penalty finish per cell), its cell axis sharded over
+    ``mesh`` when given."""
     from repro_torch.core.batched import selection_tables_cells
     jobs = _plan_jobs(system, cfgs, policies, DsPgmTables)
     if len(jobs) < 2:        # a single build gains nothing from stacking
@@ -388,20 +400,23 @@ def _prefetch_ds_pgm(system, cfgs, policies) -> None:
     masks = selection_tables_cells(
         [tuple(p.costs) for _, p in jobs], d["pi"], d["nu"],
         [float(p.miss_penalty) for _, p in jobs],
-        [p.policy == "fno" for _, p in jobs])            # [C, V, 2^n, n]
+        [p.policy == "fno" for _, p in jobs], mesh=mesh)  # [C, V, 2^n, n]
     for (key, _), mask in zip(jobs, masks):
         system.plan_cache[key] = masks_to_bits(mask).reshape(-1)
 
 
-def prefetch_tables(system, cfgs: Sequence, policies: Sequence[str]) -> None:
+def prefetch_tables(system, cfgs: Sequence, policies: Sequence[str], *,
+                    mesh=None) -> None:
     """Stack every stackable (cell, policy) table build of a decision-side
     group into one batched call per provider family, seeding
     ``system.plan_cache`` so the per-cell replays become pure lookups.
     Row-level independence of each batched builder makes every stacked
-    slice bit-identical to the per-cell build it replaces."""
+    slice bit-identical to the per-cell build it replaces.  ``mesh`` (a
+    1-D ``DeviceMesh``, or None) shards the DS_PGM stack's cell axis; the
+    exhaustive and HOCS stacks run unsharded on every rank."""
     _prefetch_exhaustive(system, cfgs, policies)
     _prefetch_hocs(system, cfgs, policies)
-    _prefetch_ds_pgm(system, cfgs, policies)
+    _prefetch_ds_pgm(system, cfgs, policies, mesh)
 
 
 @dataclasses.dataclass
@@ -461,13 +476,16 @@ def run_cells(trace: np.ndarray, cfgs: Sequence, policies: Sequence[str],
     built ones are saved after the replays — keyed on the device type, so
     a card-built table never serves a CPU run, nor the other way round.
 
-    ``mesh`` must be None: the reference's sharding of the cell axis over
-    a device mesh is not ported (the port runs on one device).
+    ``mesh`` (a 1-D ``("cells",)`` ``DeviceMesh``; None makes the sweep
+    mesh when the process world has more than one rank) shards the DS_PGM
+    stacked build's cell axis over its ranks; every rank runs the same
+    call (SPMD) and gets every result, bit-identical to ``mesh=None`` on
+    one rank.
     """
     from repro_torch.cachesim.simulator import Simulator
     from repro_torch.cachesim.store import as_store
     from repro_torch.cachesim.systemstate import SystemTrace
-    check_mesh(mesh)
+    mesh = resolve_mesh(mesh)
     device = resolve_device(device)
     trace = np.asarray(trace, dtype=np.uint64)
     out: List[Dict] = [dict() for _ in cfgs]
@@ -501,7 +519,7 @@ def run_cells(trace: np.ndarray, cfgs: Sequence, policies: Sequence[str],
                 if tab is not None:
                     system.plan_cache[key] = tab
                     preloaded.add(key)
-        prefetch_tables(system, cfgs, policies)
+        prefetch_tables(system, cfgs, policies, mesh=mesh)
         if report is not None:
             report.prefetch_s += report.since(t0, device)
     for ci, cfg in enumerate(cfgs):

@@ -56,8 +56,9 @@ Swept fields split into two kinds, classified per cell by
     parent hydrates the stored sweep onto its own device.
 
 The reference's ``backend=`` is ``device=`` here (``None`` -> ``cuda``,
-raising without a GPU), and its ``mesh`` (the cell axis sharded over
-several devices) is not ported: ``mesh=None`` only.
+raising without a GPU), and ``mesh`` (a 1-D ``("cells",)``
+``DeviceMesh``, made over the process world when None and the world has
+more than one rank) shards the DS_PGM table build's cell axis.
 
 :func:`run_sweep` is the ``update_interval`` special case (Figs. 4-6),
 kept as the stable entry point for benchmarks and tests.
@@ -186,8 +187,11 @@ def run_grid(traces: Union[Mapping[str, np.ndarray], Sequence[str]],
 
     ``device`` (``None`` -> ``cuda``, raising without a GPU) is where
     every group's decision tables are built and replayed; see
-    :func:`repro_torch.cachesim.engine.run_cells`.  ``mesh`` must be None
-    (the device mesh is not ported; ROADMAP A5).
+    :func:`repro_torch.cachesim.engine.run_cells`.  ``mesh`` (a 1-D
+    ``DeviceMesh``; None makes the sweep mesh when the process world has
+    more than one rank, as the reference does with its devices) shards
+    the DS_PGM stacked build's cell axis over the ranks; every rank runs
+    the grid and gets every result, bit-identical to ``mesh=None``.
 
     ``chunk_size`` streams every phase-1 sweep (serial and farmed)
     through fixed-size trace slices — bit-identical results, bounded
@@ -196,10 +200,10 @@ def run_grid(traces: Union[Mapping[str, np.ndarray], Sequence[str]],
     ``report`` (an optional ``repro_torch.cachesim.engine.RunReport``)
     receives the phase times of a flat grid, summed over its groups.
     """
-    from repro_torch.cachesim.engine import check_mesh, plan_for, run_cells
+    from repro_torch.cachesim.engine import plan_for, resolve_mesh, run_cells
     from repro_torch.cachesim.store import as_store
     from repro_torch.cachesim.topology import TopoConfig, run_topo_grid
-    check_mesh(mesh)
+    mesh = resolve_mesh(mesh)
     device = resolve_device(device)
     if not isinstance(traces, Mapping):
         traces = {name: get_trace(name, n_requests, seed=base.seed)
@@ -266,7 +270,7 @@ def run_grid(traces: Union[Mapping[str, np.ndarray], Sequence[str]],
             for cells in groups.values():
                 group_out = run_cells(trace, [cfg for _, cfg in cells],
                                       policies, share_system=share_system,
-                                      device=device, store=store,
+                                      device=device, mesh=mesh, store=store,
                                       chunk_size=chunk_size, report=report)
                 for (key, _), cell_res in zip(cells, group_out):
                     results[key] = cell_res

@@ -17,8 +17,12 @@ and restored exactly.
     is being written); the disk write runs on a background thread.
   * GC — keep the newest ``keep`` checkpoints.
 
-The JAX package's elastic restore onto another mesh waits for the device
-mesh (ROADMAP A8 item 6); ``restore`` places every leaf on one device.
+On a device mesh (``launch.train --mesh elastic``) the state's leaves are
+DTensors: ``save`` writes their full arrays (each gathered by all-gathers
+over its sharding mesh dims' groups, so every rank calls it) from rank 0
+only, in the same layout, and ``restore(..., mesh=, shardings=)`` lays
+each leaf out onto the target mesh (``distribute_tensor``, every rank
+keeping its own slice), whatever mesh saved it — the elastic restart.
 """
 from __future__ import annotations
 
@@ -32,8 +36,11 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import distribute_tensor
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import full
 from repro_torch.tree import tree_map_with_path, tree_paths
 
 _SEP = "::"
@@ -48,7 +55,7 @@ def _to_host(leaf: torch.Tensor) -> np.ndarray:
     """A copy of ``leaf`` on the host (synchronous; a copy on the CPU too,
     so that a later in-place update cannot reach the writer), bfloat16 as
     its uint16 bit pattern."""
-    t = leaf.detach().to("cpu", copy=True)
+    t = full(leaf.detach()).to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
@@ -66,11 +73,14 @@ def _flatten(state) -> Dict[str, tuple]:
 
 def save(state, ckpt_dir, step: int, *, keep: int = 3,
          async_: bool = False) -> Optional[threading.Thread]:
-    """Checkpoint ``state`` (a tree of tensors) at ``step``.  Returns the
-    writer thread if async."""
+    """Checkpoint ``state`` (a tree of tensors or DTensors) at ``step``.
+    Returns the writer thread if async.  In a process world every rank
+    calls it (DTensors are gathered) and rank 0 alone writes."""
     ckpt_dir = Path(ckpt_dir)
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
     flat = _flatten(state)  # device->host happens HERE, synchronously
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return None
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
 
     def write():
         tmp = ckpt_dir / f"step_{step}.tmp"
@@ -123,11 +133,18 @@ def latest_step(ckpt_dir) -> Optional[int]:
 
 
 def restore(ckpt_dir, like, step: Optional[int] = None,
-            device: DeviceLike = None) -> Any:
+            device: DeviceLike = None, *, mesh=None, shardings=None) -> Any:
     """The checkpoint at ``step`` (the latest when None) in the structure
     of ``like`` — a tree whose leaves have a ``dtype`` (tensors, meta
     tensors included) — each leaf cast to its ``like`` leaf's dtype and
-    placed on ``device`` (``cuda`` unless asked; raises without a GPU)."""
+    placed on ``device`` (``cuda`` unless asked; raises without a GPU).
+
+    ``shardings`` (with ``mesh``): a tree of the same structure whose
+    leaves are DTensor placement lists, or None for a leaf kept whole;
+    each such leaf is laid out onto ``mesh`` as a DTensor — the elastic
+    restart onto a mesh other than the one that saved."""
+    if (mesh is None) != (shardings is None):
+        raise ValueError("restore: pass mesh and shardings together")
     dev = resolve_device(device)
     ckpt_dir = Path(ckpt_dir)
     step = step if step is not None else latest_step(ckpt_dir)
@@ -147,7 +164,13 @@ def restore(ckpt_dir, like, step: Optional[int] = None,
                 raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)}, "
                                  f"expected {tuple(want.shape)}")
             return t.to(device=dev, dtype=want.dtype)
-        return tree_map_with_path(leaf, like)
+        state = tree_map_with_path(leaf, like)
+    if shardings is None:
+        return state
+    return tree_map_with_path(
+        lambda _, t, pl: t if pl is None else
+        distribute_tensor(t, mesh, pl, src_data_rank=None),
+        state, shardings)
 
 
 class CheckpointManager:

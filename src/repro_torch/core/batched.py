@@ -226,7 +226,7 @@ def selection_tables(costs, pi, nu, miss_penalty, *, fno: bool = False,
 
 
 def selection_tables_cells(costs_cells, pi, nu, penalties, fno_cells,
-                           *, device=None) -> torch.Tensor:
+                           *, device=None, mesh=None) -> torch.Tensor:
     """[C, V, 2^n, n] DS_PGM decision tables for C decision cells against
     ONE shared [V, n] (pi, nu) view history — one stacked torch evaluation
     in the reference's two stages (``_cells_tables_kernel``).
@@ -238,6 +238,15 @@ def selection_tables_cells(costs_cells, pi, nu, penalties, fno_cells,
     cache order).  Both stages replicate :func:`ds_pgm_batched`'s operation
     chain, so cell c's slice equals a per-cell :func:`selection_tables`
     call.  ``costs_cells``: [C, n]; ``penalties``: [C]; ``fno_cells``: [C].
+
+    With a ``mesh`` of more than one rank (``launch.mesh.make_sweep_mesh``,
+    the reference's ``selection_tables_cells_jax(mesh=)``) the group and
+    cell axes are row-sharded over it, each padded to a multiple of the
+    mesh size by repeating its last row (``distributed.sharding.
+    shard_cells``): each rank sorts its groups on its device, the stage-1
+    rows are all-gathered, each rank finishes its cells, and the masks are
+    all-gathered, so every rank returns all C tables — bit-identical to
+    ``mesh=None``, every row's operations being the same.
     """
     dev = tensor_device(pi, device)
     pi = torch.atleast_2d(f64(pi, dev))
@@ -257,15 +266,43 @@ def selection_tables_cells(costs_cells, pi, nu, penalties, fno_cells,
                  for cc, f in zip(costs_cells, fno_cells)]
     r = _pattern_rhos(pi, nu).clamp(EPS, 1.0 - EPS)
     pat_rows = _pattern_bits(n, dev).repeat(v, 1) > 0           # [rows, n]
+    first = [group_idx.index(g) for g in range(len(uniq))]
+    if mesh is not None and mesh.size() > 1:
+        return _cells_sharded(costs_cells[first], fno_cells[first],
+                              group_idx, penalties, r, pat_rows, mesh,
+                              dev).reshape(c, v, k, n)
     stage1 = [_pg_sort(f64(costs_cells[ci], dev).expand(rows, n), r,
                        pat_rows if fno_cells[ci] else None)
-              for ci in [group_idx.index(g) for g in range(len(uniq))]]
+              for ci in first]
     out = torch.empty((c, rows, n), dtype=torch.bool, device=dev)
     for ci in range(c):
         m_col = torch.full((rows, 1), float(penalties[ci]), dtype=F64,
                            device=dev)
         out[ci] = _pg_finish(*stage1[group_idx[ci]], m_col)
     return out.reshape(c, v, k, n)
+
+
+def _cells_sharded(costs_u, fno_u, group_idx, penalties, r, pat_rows, mesh,
+                   dev) -> torch.Tensor:
+    """:func:`selection_tables_cells`' two stages with the group and cell
+    axes row-sharded over the 1-D ``mesh``: [C, rows, n] bool on every
+    rank."""
+    from repro_torch.distributed.sharding import all_gather_dim, shard_cells
+    rows, n = pat_rows.shape
+    group = mesh.get_group(0)
+    size = mesh.size()
+    (cu, fu), _ = shard_cells([costs_u, fno_u], mesh, device=dev)
+    (gi, pp), c = shard_cells([np.asarray(group_idx), penalties], mesh,
+                              device=dev)
+    mine = [_pg_sort(row.expand(rows, n), r, pat_rows if bool(f) else None)
+            for row, f in zip(cu.to_local(), fu.to_local().tolist())]
+    order, csum, lprod = (all_gather_dim(torch.stack(part), 0, group, size)
+                          for part in zip(*mine))
+    masks = [_pg_finish(order[g], csum[g], lprod[g],
+                        torch.full((rows, 1), m, dtype=F64, device=dev))
+             for g, m in zip(gi.to_local().tolist(), pp.to_local().tolist())]
+    out = all_gather_dim(torch.stack(masks).to(torch.uint8), 0, group, size)
+    return out[:c].bool()
 
 
 def rho_selection_tables(costs, rhos, miss_penalty, *, allowed=None

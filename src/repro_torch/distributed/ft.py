@@ -1,20 +1,32 @@
-"""Fault tolerance: preemption handling and straggler detection — the
-port of the JAX package's ``repro.distributed.ft`` (``elastic_mesh``
-waits for the device mesh, ROADMAP A8 item 6).
+"""Fault tolerance: preemption handling, straggler detection, elastic
+meshes — the port of the JAX package's ``repro.distributed.ft``.
 
 * :class:`PreemptionHandler` — SIGTERM/SIGUSR1 -> "checkpoint and exit 42"
   (the restart contract cluster schedulers expect; the launcher is
   re-invoked with ``--resume``).
 * :class:`StepTimer` — EMA/variance step-time tracker flagging
   stragglers.
+* :func:`elastic_mesh` — the largest usable (data, model) mesh over the
+  ranks that are live now: the model dim fixed (the weights must fit),
+  the data dim the largest power of two <= live / model_dim.  With
+  ``checkpoint.restore(shardings=...)`` this is the elastic restart: lose
+  a host, start a smaller world, rebuild the mesh, reshard, continue.
+  Ranks beyond data x model_dim are spare: they hold no part of the mesh
+  (``is_spare``) — the launcher has them wait at a barrier for the run's
+  end and exit 0.
 """
 from __future__ import annotations
 
+import math
 import signal
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Sequence
+
+from torch.distributed.device_mesh import DeviceMesh
+
+from repro_torch.launch.mesh import make_mesh, world_size
 
 
 class PreemptionHandler:
@@ -78,3 +90,25 @@ class StepTimer:
         self.var = (1 - w) * self.var + w * (dt - self.mean) ** 2
         self.mean = (1 - w) * self.mean + w * dt
         return is_straggler
+
+
+def elastic_mesh(model_dim: int = 1, ranks: Optional[Sequence[int]] = None
+                 ) -> DeviceMesh:
+    """Largest (data, model) mesh over the live ranks (``ranks``, the
+    whole world by default): data = floor(live / model_dim) rounded down
+    to a power of two so batch sharding stays divisible.  Collective:
+    every rank of the world calls it, spare ones too."""
+    ranks = list(range(world_size())) if ranks is None else list(ranks)
+    live = len(ranks)
+    if live < model_dim:
+        raise RuntimeError(f"only {live} ranks live; need >= "
+                           f"model_dim={model_dim}")
+    data = live // model_dim
+    data = 2 ** int(math.log2(data)) if data > 0 else 1
+    n = data * model_dim
+    return make_mesh((data, model_dim), ("data", "model"), ranks=ranks[:n])
+
+
+def is_spare(mesh: DeviceMesh) -> bool:
+    """Whether this rank lies outside ``mesh``."""
+    return mesh.get_coordinate() is None

@@ -30,8 +30,26 @@ restores both when it returns).  Without them the backward passes of the
 embedding gather, the loss's gold-logit gather and the MoE dispatch
 gathers accumulate with atomics, in a different order each run.
 
-``--mesh elastic`` needs the device mesh, which the port has not yet
-(ROADMAP A8 item 6), and raises ``NotImplementedError``.
+``--mesh elastic --model-dim N`` trains on the device mesh, as the JAX
+launcher does: the process group starts from ``torch.distributed.run``'s
+environment (a world of 1 when run as a single process; ``nccl`` on
+``cuda``, ``gloo`` on ``cpu``, ``--backend`` to choose), the mesh is
+``distributed.ft.elastic_mesh(model_dim=N)`` over the world, params, m and
+v are laid out by ``distributed.sharding.param_shardings``, and step and
+batch are replicated (the reference passes ``in_shardings=(shardings,
+None)`` under ``activation_rules(None)``, so its data ranks repeat the
+same work; so do the port's, which adds no data parallelism).  Only rank
+0 prints the step lines and writes checkpoints (every rank gathers its
+shards for them); ``--resume`` restores onto the new mesh, whatever mesh
+saved; a preemption checkpoints and exits 42 on every rank.  Ranks beyond
+the mesh are spare: they wait at a barrier for the run's end and exit 0.
+
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.train --mesh elastic --model-dim 2 ...
+
+The summary line also carries every step's loss (``losses``), the step
+seconds (``step_s``) and the mesh's shape; each other rank prints its
+own peak memory on a ``[train] rank R`` line.
 """
 from __future__ import annotations
 
@@ -44,15 +62,20 @@ import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager, latest_step, restore
 from repro_torch.configs import get_config
 from repro_torch.data import (DataConfig, Prefetcher, SyntheticLMData,
                               to_device)
 from repro_torch.device import resolve_device
-from repro_torch.distributed.ft import PreemptionHandler, StepTimer
+from repro_torch.distributed.ft import (PreemptionHandler, StepTimer,
+                                        elastic_mesh, is_spare)
+from repro_torch.distributed.sharding import (activation_rules, distribute,
+                                              param_shardings)
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd
+from repro_torch.launch.mesh import init_distributed, shutdown_distributed
 from repro_torch.models import get_model, init_params
 from repro_torch.optim import OptConfig, init_train_state, make_train_step
 
@@ -113,19 +136,37 @@ def main(argv=None) -> int:
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--mesh", default="none", choices=["none", "elastic"])
     ap.add_argument("--model-dim", type=int, default=1)
+    ap.add_argument("--backend", default=None,
+                    help="process-group backend of --mesh elastic (nccl "
+                         "on cuda, gloo on cpu by default)")
     ap.add_argument("--kill-at", type=int, default=-1)
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
-    if args.mesh == "elastic":
-        raise NotImplementedError(
-            "--mesh elastic needs the device mesh, which the port has not "
-            "yet (ROADMAP A8 item 6)")
     with deterministic():
-        return _train(args)
+        if args.mesh == "none":
+            return _train(args, resolve_device(args.device), None)
+        dev = init_distributed(args.device, args.backend)
+        try:
+            mesh = elastic_mesh(model_dim=args.model_dim)
+            if is_spare(mesh):
+                print(f"[train] rank {dist.get_rank()} is spare (mesh "
+                      f"{_shape(mesh)}); waiting for the run's end")
+                dist.barrier()
+                return 0
+            rc = _train(args, dev, mesh)
+            dist.barrier()
+            return rc
+        finally:
+            shutdown_distributed()
 
 
-def _train(args) -> int:
-    dev = resolve_device(args.device)
+def _shape(mesh) -> dict:
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def _train(args, dev: torch.device, mesh) -> int:
+    rank0 = mesh is None or dist.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
     cfg, model, ocfg, data = build(args)
     train_step = make_train_step(model, ocfg)
     if dev.type == "cuda":
@@ -133,13 +174,24 @@ def _train(args) -> int:
     launches0 = _launches()
 
     gen = torch.Generator(dev).manual_seed(args.seed)
-    state = init_train_state(init_params(cfg, gen, device=dev), ocfg)
+    params = init_params(cfg, gen, device=dev)
+    shardings = None
+    if mesh is not None:
+        say(f"[train] elastic mesh: {_shape(mesh)}")
+        psh = param_shardings(mesh, params, cfg.tie_embeddings)
+        params = distribute(params, mesh, psh)
+        shardings = {"params": psh, "m": psh, "v": psh, "step": None}
+        if ocfg.compression == "int8_ef":
+            shardings["ef"] = psh
+    state = init_train_state(params, ocfg)
     start = 0
     if args.resume and args.ckpt_dir and \
             latest_step(args.ckpt_dir) is not None:
-        state = restore(args.ckpt_dir, state, device=dev)
+        state = restore(args.ckpt_dir, state, device=dev,
+                        mesh=mesh,
+                        shardings=shardings)
         start = int(state["step"])
-        print(f"[train] resumed from step {start}")
+        say(f"[train] resumed from step {start}")
 
     ckpt = CheckpointManager(args.ckpt_dir, interval=args.ckpt_interval) \
         if args.ckpt_dir else None
@@ -148,6 +200,7 @@ def _train(args) -> int:
     prefetch = Prefetcher(data.iterate(start_step=start))
     tokens_per_step = args.batch * args.seq
     loss = float("nan")
+    losses, step_s = [], []
 
     try:
         for step in range(start, args.steps):
@@ -157,40 +210,51 @@ def _train(args) -> int:
                 if ckpt:
                     ckpt.maybe_save(state, step, force=True)
                     ckpt.wait()
-                print(f"[train] preempted at step {step}; checkpointed, "
-                      f"exit {EXIT_PREEMPTED}")
+                say(f"[train] preempted at step {step}; checkpointed, "
+                    f"exit {EXIT_PREEMPTED}")
                 return EXIT_PREEMPTED
             host_batch = prefetch.get()
             timer.start()
-            state, metrics = train_step(state, to_device(host_batch, dev))
+            with activation_rules(None):
+                state, metrics = train_step(state,
+                                            to_device(host_batch, dev))
             loss = float(metrics["loss"])
             dt = timer.stop(step)
+            losses.append(loss)
+            step_s.append(dt)
             if step % args.log_every == 0 or step == args.steps - 1:
-                print(f"[train] step {step:5d} loss {loss:.4f} "
+                say(f"[train] step {step:5d} loss {loss:.4f} "
                       f"gnorm {float(metrics['grad_norm']):.3f} "
                       f"{tokens_per_step / max(dt, 1e-9):,.0f} tok/s "
                       f"{dt * 1e3:.0f} ms")
             if ckpt:
                 ckpt.maybe_save(state, step + 1)
         summary = {"device": dev.type, "peak_memory_bytes": None,
-                   "ckpt_bytes": None, "ckpt_save_s": None}
+                   "ckpt_bytes": None, "ckpt_save_s": None,
+                   "mesh": None if mesh is None else _shape(mesh),
+                   "losses": losses, "step_s": step_s}
         if ckpt:
             t0 = time.perf_counter()
             ckpt.maybe_save(state, args.steps, force=True)
             ckpt.wait()
             summary["ckpt_save_s"] = time.perf_counter() - t0
             last = Path(args.ckpt_dir) / f"step_{args.steps}"
-            summary["ckpt_bytes"] = sum(f.stat().st_size
-                                        for f in last.iterdir())
+            if rank0:
+                summary["ckpt_bytes"] = sum(f.stat().st_size
+                                            for f in last.iterdir())
         if timer.stragglers:
-            print(f"[train] straggler steps: {timer.stragglers}")
-        print(f"[train] done: {args.steps} steps, final loss {loss:.4f}")
+            say(f"[train] straggler steps: {timer.stragglers}")
+        say(f"[train] done: {args.steps} steps, final loss {loss:.4f}")
         if dev.type == "cuda":
             summary["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
         launches = _launches()
         summary["kernel_launches"] = {k: launches[k] - launches0[k]
                                       for k in launches}
-        print(f"[train] summary {json.dumps(summary)}")
+        if rank0:
+            print(f"[train] summary {json.dumps(summary)}")
+        else:
+            print(f"[train] rank {dist.get_rank()} peak_memory_bytes "
+                  f"{summary['peak_memory_bytes']}")
         return 0
     finally:
         prefetch.close()

@@ -23,6 +23,12 @@ differentiable ``ssm.ssd_chunked`` (each Mamba block under
 ``transformer._remat``, as in the JAX package) and plain attention
 (``layers.attn_forward``).  Decode is plain torch (``ssm.mamba_step``,
 ``layers.attn_decode_forward``).
+
+On a device mesh the parameters are DTensors: ``forward`` and ``loss``
+gather them at their entry (``distributed.sharding.unshard``, an
+all-gather of each sharded parameter, the embedding table included) and
+run the blocks on plain tensors; activations stay replicated, so the
+reference's ``shard_activation`` calls are left out.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import unshard
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 from repro_torch.models.transformer import _remat, lm_loss
@@ -122,10 +129,12 @@ class Zamba2LM:
 
     def forward(self, params, batch) -> torch.Tensor:
         """Full logits [B, S, V] (small inputs only; tests)."""
+        params = unshard(params)
         return self._logits(params, self._body(params, batch))
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Mean next-token cross-entropy -> (loss, {"loss", "tokens"})."""
+        params = unshard(params)
         return lm_loss(self._body(params, batch), params["unembed"],
                        params["final_norm"], batch, self.cfg.norm_eps)
 

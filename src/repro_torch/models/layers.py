@@ -19,9 +19,24 @@ every expert on every token (``dense``) or the reference's sort-based
 capacity dispatch (``dispatch``: groups of tokens, a stable argsort over
 the expert ids, slots past the capacity dropped to a zero row, combined
 through the inverse permutation).  The expert products are batched
-matrix products outside any kernel, as in the JAX package; its
-``_moe_shardmap`` (expert parallelism over a device mesh) waits for the
-device mesh.
+matrix products outside any kernel, as in the JAX package.
+
+Expert parallelism (``_moe_shardmap``, the reference's ``shard_map``
+path): under installed mesh rules (``distributed.sharding``) and a full
+sequence, ``moe_forward`` cuts each rank's block of tokens out of the
+replicated activations (batch over the data axes, sequence over
+``model``; ``sharding.scatter``, whose backward all-gathers), buckets them locally at the per-shard capacity
+``max(4, ceil(t_loc k / E * capacity_factor))``, sends each expert's
+buffer to the rank that holds it (``all_to_all_single`` over the model
+axis' group, an autograd function whose backward is the same exchange),
+runs the local experts on their local weights (``to_local`` of the
+expert-sharded DTensors, their gradient summed over the data axes by
+``sharding.sum_grad``), exchanges back, combines, and all-gathers the
+blocks into replicated activations again (``sharding.gather``; backward:
+the local slice).  It returns None — the
+pure path — when the shapes do not tile the mesh.  The other DTensor
+parameters reach these functions gathered (``sharding.unshard``);
+an expert weight reaching the pure path is gathered in ``_experts``.
 """
 from __future__ import annotations
 
@@ -30,9 +45,11 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.flash_attention import flash_attention
 
 NEG_INF = -2.0e38
@@ -323,10 +340,12 @@ def moe_route(p: Params, x, cfg: ModelConfig):
 
 
 def _experts(p: Params, xg, cdt):
-    """SwiGLU of every expert on its own rows: xg [G,E,C,d] -> [G,E,C,d]."""
-    h = torch.einsum("gecd,edf->gecf", xg, p["wg"].to(cdt))
-    u = torch.einsum("gecd,edf->gecf", xg, p["wi"].to(cdt))
-    return torch.einsum("gecf,efd->gecd", F.silu(h) * u, p["wo"].to(cdt))
+    """SwiGLU of every expert on its own rows: xg [G,E,C,d] -> [G,E,C,d]
+    (expert weights that are DTensors gathered first)."""
+    wg, wi, wo = (shd.full(p[n]).to(cdt) for n in ("wg", "wi", "wo"))
+    h = torch.einsum("gecd,edf->gecf", xg, wg)
+    u = torch.einsum("gecd,edf->gecf", xg, wi)
+    return torch.einsum("gecf,efd->gecd", F.silu(h) * u, wo)
 
 
 def moe_forward(p: Params, x, cfg: ModelConfig):
@@ -346,6 +365,11 @@ def moe_forward(p: Params, x, cfg: ModelConfig):
                              topw.reshape(b * s, k))
         out = torch.einsum("etd,te->td", y, dense_w.to(cdt))
         return out.reshape(b, s, d)
+    rules = shd.current_rules()
+    if rules is not None and s > 1:
+        out = _moe_shardmap(p, x, topi, topw.to(cdt), cfg, rules)
+        if out is not None:
+            return out
     g = cfg.moe_groups if s % cfg.moe_groups == 0 and s >= cfg.moe_groups \
         else 1
     tg = s // g
@@ -393,20 +417,100 @@ def dispatch_plan(ti, e: int, cap: int):
     return buf_idx, bp
 
 
-def _moe_dispatch_batched(xf, ti, tw, p: Params, cfg: ModelConfig):
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` of ``x`` [M, ...] over ``group`` (chunk i to
+    rank i, chunk i of the result from rank i); its backward is the same
+    exchange of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def _all_to_all(x, group):
+    # contiguous first: ``empty_like`` keeps a view's strides, and the
+    # collective fills the buffer in memory order
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def _moe_shardmap(p: Params, x, topi, topw, cfg: ModelConfig, rules):
+    """Explicit EP over (data axes x model); None when the shapes do not
+    tile the mesh (the caller takes the pure path)."""
+    from torch.distributed.tensor import DTensor
+
+    b, s, d = x.shape
+    e, k = cfg.n_experts_padded, cfg.topk
+    mesh, maxis = rules.mesh, rules.model_axis
+    m = shd.axis_size(mesh, maxis)
+    dp_size = shd.mesh_size(mesh, rules.dp)
+    experts = [p[n] for n in ("wg", "wi", "wo")]
+    ep = shd.placements((maxis, None, None), mesh)
+    if b % dp_size or s % m or e % m or not all(
+            isinstance(w, DTensor) and tuple(w.placements) == ep
+            for w in experts):
+        return None
+    t_loc = (b // dp_size) * (s // m)
+    cap = max(4, int(math.ceil(t_loc * k / e * cfg.capacity_factor)))
+    e_loc = e // m
+    cdt = x.dtype
+    blk = shd.placements((rules.dp, maxis, None), mesh)
+    # this rank's block of tokens (batch over the data axes, sequence over
+    # the model axis), cut from the replicated activations
+    xl, twl = shd.scatter(x, mesh, blk), shd.scatter(topw, mesh, blk)
+    til = shd.local_slice(topi, mesh, blk)
+    bl, sl = xl.shape[:2]
+    # the local experts; the data ranks ran them on other tokens, so their
+    # gradient sums over the data axes (shard_map's transpose of an input
+    # that is replicated over them)
+    wg, wi, wo = (shd.sum_grad(w.to_local(), mesh, rules.data_axes).to(cdt)
+                  for w in experts)
+    group = mesh.get_group(maxis)
+
+    def expert_fn(xg):
+        # xg: [1, E, cap, d], every expert's local buffer -> each rank
+        # keeps its E_loc experts' buffers from every peer
+        recv = _AllToAll.apply(xg.reshape(m, e_loc, cap, d), group)
+        recv = recv.transpose(0, 1).reshape(e_loc, m * cap, d)
+        h = torch.einsum("ecd,edf->ecf", recv, wg)
+        u = torch.einsum("ecd,edf->ecf", recv, wi)
+        yg = torch.einsum("ecf,efd->ecd", F.silu(h) * u, wo)
+        back = yg.reshape(e_loc, m, cap, d).transpose(0, 1).contiguous()
+        back = _AllToAll.apply(back, group)               # [M,E_loc,cap,d]
+        return back.reshape(1, e, cap, d)
+
+    out = _moe_dispatch_batched(xl.reshape(1, bl * sl, d),
+                                til.reshape(1, bl * sl, k),
+                                twl.reshape(1, bl * sl, k), p, cfg,
+                                expert_fn=expert_fn, cap_override=cap)
+    return shd.gather(out.reshape(bl, sl, d), mesh, blk)
+
+
+def _moe_dispatch_batched(xf, ti, tw, p: Params, cfg: ModelConfig, *,
+                          expert_fn=None, cap_override=None):
     """Batched capacity dispatch.  xf: [G,T,d]; ti/tw: [G,T,K].  Each
     group's token rows are gathered into [E, cap] expert buffers, the
-    experts run batched, and each (token, choice) gathers its slot back
-    (a dropped one the zero row), weighted by its gate."""
+    experts run batched (``expert_fn`` of the buffers [G,E,cap,d] when
+    given: the EP path's exchange), and each (token, choice) gathers its
+    slot back (a dropped one the zero row), weighted by its gate.
+    ``cap_override`` replaces :func:`moe_capacity`."""
     gdim, t, d = xf.shape
     e, k = cfg.n_experts_padded, cfg.topk
     cdt = xf.dtype
-    cap = moe_capacity(t, cfg)
+    cap = cap_override if cap_override is not None else moe_capacity(t, cfg)
     buf_idx, bp = dispatch_plan(ti, e, cap)
     zero = xf.new_zeros((gdim, 1, d))
     x_pad = torch.cat([xf, zero], dim=1)
     xg = torch.gather(x_pad, 1, buf_idx[..., None].expand(-1, -1, d))
-    yg = _experts(p, xg.reshape(gdim, e, cap, d), cdt)
+    xg = xg.reshape(gdim, e, cap, d)
+    yg = expert_fn(xg) if expert_fn is not None else _experts(p, xg, cdt)
     yg_pad = torch.cat([yg.reshape(gdim, e * cap, d), zero], dim=1)
     contrib = torch.gather(yg_pad, 1, bp[..., None].expand(-1, -1, d))
     return torch.einsum("gtkd,gtk->gtd", contrib.reshape(gdim, t, k, d),

@@ -8,6 +8,12 @@ runs each block's scan through the SSD kernel (``models.ssm``), one
 launch per layer, under ``torch.no_grad()``; ``forward`` and ``loss``
 run the differentiable ``ssm.ssd_chunked`` instead, each block under
 ``transformer._remat``, and reach no kernel.
+
+On a device mesh the parameters are DTensors: ``forward`` and ``loss``
+gather them at their entry (``distributed.sharding.unshard``, an
+all-gather of each sharded parameter, the embedding table included) and
+run the blocks on plain tensors; activations stay replicated, so the
+reference's ``shard_activation`` calls are left out.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import unshard
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 from repro_torch.models.transformer import _remat, lm_loss
@@ -75,10 +82,12 @@ class Mamba2LM:
 
     def forward(self, params, batch) -> torch.Tensor:
         """Full logits [B, S, V] (small inputs only; tests)."""
+        params = unshard(params)
         return self._logits(params, self._body(params, batch))
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Mean next-token cross-entropy -> (loss, {"loss", "tokens"})."""
+        params = unshard(params)
         return lm_loss(self._body(params, batch), self._unembed(params),
                        params["final_norm"], batch, self.cfg.norm_eps)
 

@@ -27,6 +27,17 @@ activation x weight products and recomputes the rest, as JAX's
 ``dots_with_no_batch_dims_saveable``), and ``chunked_ce_loss`` takes the
 cross-entropy one sequence chunk at a time, each chunk checkpointed, as
 ``src/repro/models/transformer.py:23-63`` does.
+
+On a device mesh (``distributed.sharding``; ``launch.train --mesh
+elastic``) the parameters are DTensors.  ``forward`` and ``loss`` gather
+each at their entry (``sharding.unshard``: an all-gather of every
+sharded parameter, the embedding table's too, as GSPMD would insert one
+before a gather from a ``model``-sharded table; the backward takes the
+local slice) and run the blocks on plain tensors; the MoE expert weights
+stay sharded for expert parallelism (``layers._moe_shardmap``) and are
+gathered in ``layers._experts`` when the pure path runs.  Activations
+stay replicated, so the reference's ``shard_activation`` calls between
+blocks have nothing to lay out and are left out.
 """
 from __future__ import annotations
 
@@ -39,6 +50,7 @@ from torch.utils.checkpoint import (checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import is_moe_expert, unshard
 from repro_torch.models import layers as L
 
 F32 = torch.float32
@@ -192,6 +204,7 @@ class TransformerLM:
 
     def forward(self, params, batch) -> torch.Tensor:
         """Full logits [B, S, V] (small inputs only; tests)."""
+        params = unshard(params, keep=is_moe_expert)
         return self._logits(params,
                             self._body(params, self._embed_inputs(params,
                                                                   batch)))
@@ -200,6 +213,7 @@ class TransformerLM:
         """Mean next-token cross-entropy of ``batch`` (tokens, labels[,
         mask][, patch_embeds]) -> (loss, {"loss", "tokens"}); for ``vlm``
         over the text positions only."""
+        params = unshard(params, keep=is_moe_expert)
         x = self._body(params, self._embed_inputs(params, batch))
         if self.cfg.family == "vlm":
             x = x[:, -batch["labels"].shape[1]:]

@@ -595,3 +595,40 @@ def test_reduced_train_step_card_equals_cpu(card):
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     for want, got in zip(tree_leaves(out[0][2]), tree_leaves(out[1][2])):
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_world_one_nccl_mesh_train_step_equals_plain(card):
+    """One train step of the reduced smollm-135m on a (1, 1) elastic mesh
+    over a world of one rank on NCCL (parameters, m and v DTensors) equals
+    the plain step on the card: loss, grad_norm and every updated
+    parameter at 1e-6."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData, to_device
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.ft import elastic_mesh
+    from repro_torch.launch.mesh import init_distributed, shutdown_distributed
+    from repro_torch.models import get_model, init_params
+    from repro_torch.optim import OptConfig, init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("smollm-135m").reduced()
+    model = get_model(cfg)
+    params = init_params(cfg, torch.Generator(card).manual_seed(1), card)
+    batch = to_device(SyntheticLMData(DataConfig(batch=2, seq=32),
+                                      cfg).batch_at(0), card)
+    ocfg = OptConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+    step = make_train_step(model, ocfg)
+    plain, want = step(init_train_state(params, ocfg), batch)
+    init_distributed(card, "nccl")
+    try:
+        mesh = elastic_mesh(model_dim=1)
+        dp = sh.distribute(params, mesh, sh.param_shardings(
+            mesh, params, cfg.tie_embeddings))
+        new, got = step(init_train_state(dp, ocfg), batch)
+        new = sh.unshard(new["params"])
+    finally:
+        shutdown_distributed()
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-6)
+    for a, b in zip(tree_leaves(plain["params"]), tree_leaves(new)):
+        torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-6)

@@ -292,6 +292,19 @@ def test_preempt_resume_bit_exact(tmp_path):
                                           "ssd_scan": 0}
 
 
-def test_elastic_mesh_not_ported():
-    with pytest.raises(NotImplementedError, match="A8 item 6"):
-        train_main(["--mesh", "elastic", "--device", "cpu"])
+def test_elastic_mesh_not_ported(capsys):
+    """``--mesh elastic`` (once not ported) on a world of one rank on the
+    CPU: a (1, 1) mesh, DTensor state, the same losses as ``--mesh
+    none`` bit for bit."""
+    args = ["--arch", "smollm-135m", "--reduced", "--device", "cpu",
+            "--steps", "3", "--batch", "2", "--seq", "16"]
+    assert train_main(args) == 0
+    ref = capsys.readouterr().out
+    assert train_main(args + ["--mesh", "elastic"]) == 0
+    out = capsys.readouterr().out
+    assert "[train] elastic mesh: {'data': 1, 'model': 1}" in out
+
+    def summary(text):
+        return json.loads(text.split("[train] summary ", 1)[1])
+    assert summary(out)["losses"] == summary(ref)["losses"]
+    assert summary(out)["mesh"] == {"data": 1, "model": 1}

@@ -13,7 +13,8 @@ pool — against the committed golden results and the JAX reference.
     independent runs;
   * ``workers=2`` bit-identical to ``workers=0``, its sweeps computed in
     the pool and hydrated by the parent;
-  * ``mesh`` other than None raises.
+  * a ``mesh`` that is not a ``DeviceMesh`` raises (the sharded grid:
+    ``tests/test_torch_mesh_grid.py``).
 """
 import dataclasses
 import json
@@ -224,11 +225,13 @@ def test_workers_without_store_use_a_call_scoped_root():
 
 
 def test_mesh_other_than_none_raises():
+    """A ``mesh`` that is not a ``DeviceMesh`` raises ``TypeError``; None
+    on a single process runs unsharded."""
     trace = get_trace("gradle", 200, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         run_grid({"gradle": trace}, SimConfig(), "update_interval", (100,),
                  device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         run_cells(trace, [SimConfig()], ("fna",), device="cpu",
                   mesh=object())
     out = run_grid({"gradle": trace}, SimConfig(), "update_interval", (100,),

@@ -146,15 +146,34 @@ def test_grid_entry_points_raise_without_gpu(monkeypatch):
 
 
 def test_grid_mesh_other_than_none_raises():
+    """A mesh that is not a ``DeviceMesh`` raises ``TypeError``; a 1-rank
+    ``("cells",)`` mesh gives the results of ``mesh=None``."""
+    import dataclasses
+
     from repro_torch.cachesim import run_cells, run_grid
+    from repro_torch.launch.mesh import (init_distributed, make_mesh,
+                                         shutdown_distributed)
     trace = np.arange(50) % 7
     cfg = SimConfig(cache_size=100, update_interval=20)
     for call in (lambda: run_grid({"t": trace}, cfg, "update_interval",
                                   (20,), device="cpu", mesh="sweep"),
                  lambda: run_cells(trace, [cfg], ("fna",), device="cpu",
                                    mesh="sweep")):
-        with pytest.raises(NotImplementedError, match="mesh"):
+        with pytest.raises(TypeError, match="mesh"):
             call()
+    init_distributed("cpu")
+    try:
+        mesh = make_mesh((1,), ("cells",))
+        grids = [run_grid({"t": trace}, cfg, "miss_penalty", (25, 100),
+                          policies=("fna", "fno"), device="cpu", mesh=m)
+                 for m in (mesh, None)]
+    finally:
+        shutdown_distributed()
+    assert set(grids[0]) == set(grids[1])
+    for key, cell in grids[0].items():
+        for p, res in cell.items():
+            assert dataclasses.asdict(res) == \
+                dataclasses.asdict(grids[1][key][p]), (key, p)
 
 
 def test_bloom_entry_points_raise_without_gpu(monkeypatch):
