@@ -142,7 +142,34 @@ Phases, each failing the run on any mismatch:
      stacked build sharded) and (e)'s exhaustive grid, field for field
      equal to ``mesh=None`` on one rank, each rank's subset-DP launches
      equal to the single rank's.  ``python3 chip_smoke.py --phase 10``
-     runs phases 1, 6 and 10 alone and prints no result.
+     runs phases 1, 6 and 10 alone and prints no result;
+ 11. the dry run (``repro_torch.launch.dryrun``): ``python -m
+     repro_torch.launch.dryrun --all --mesh both --force`` as a child
+     process, started right after phase 1 so that its host-only tracing
+     runs beside phases 2-10 (no card: ``CUDA_VISIBLE_DEVICES`` empty),
+     all 64 records checked (256 / 512 chips, FLOPs and bytes > 0, a
+     bottleneck) and printed one line a cell beside the card's name and
+     power limit; four cells' per-device steps run on the card under the
+     cost trace against their meta traces — smollm-135m prefill_32k (flash
+     at [2, 32768, 9/3, 64] bf16 causal), mamba2-370m prefill_32k (SSD at
+     [2, 32768, 32, 64] N 128, chunk 256), smollm-135m decode_32k (B 8)
+     and smollm-135m train_4k (16 x 4096 tokens, 22 GB of temporaries
+     predicted): kernel launches (counts set to 0 just before) equal to
+     the trace's calls, FLOPs equal, the trace's peak temporaries within
+     ``PEAK_BAND`` of ``torch.cuda.max_memory_allocated`` above the step's
+     baseline, the measured step time printed beside the roofline's; then
+     flash at that 32k shape against its plain version over every query
+     block of 2,048 rows (the whole [32768, 32768] scores do not fit) and
+     the SSD at its 32k shape against its plain version whole, at (d1)'s
+     tolerances, both timed beside their bounds (flash beside SDPA) and
+     added to the kernels line.  ``python3 chip_smoke.py --phase 11`` runs
+     phases 1 and 11 alone and prints no result.
+
+(d2) was cut to make room for phase 11: the serve drives take 64, 48, 32,
+32, 32 and 24 requests where they took 200, 100, 64, 64, 64 and 48; each
+drive prints the seconds the cut saved (its prefill and decode seconds a
+request times the requests cut), and the last lines print phase 11's
+seconds and the sum saved.
 
 TF32 is off for matrix products (``torch.backends.cuda.matmul``, the
 default) and for cuDNN (``torch.backends.cudnn``, on by default), so that
@@ -204,6 +231,10 @@ PAPER_ROUTER = dict(n=8, keys=10_000)
 #: 10% churn between the advertised and the current content, 2^20 keys
 FLEET = dict(n=16, capacity=40_000_000, churn=4_000_000, batch=1 << 20,
              miss_penalty=100.0)
+
+
+#: numbers the last lines print: the (d2) cut's estimated seconds saved
+RUN = {"d2_saved_s": 0.0}
 
 
 class SmokeFailure(AssertionError):
@@ -1086,21 +1117,26 @@ SSD_TOL = {"float32": 2e-3, "bfloat16": 3e-2}
 #: the full-width serve drives at the published configs: (arch, launcher
 #: flags, kernel launches a prefill).  Prefix lengths are multiples of 16
 #: (granite's ``moe_groups``); zamba2-7b's requests stay few because each
-#: cached prefix holds 149 MB of SSD state beside 28 GB of weights
+#: cached prefix holds 149 MB of SSD state beside 28 GB of weights.  The
+#: request counts were cut to make room for phase 11 (``SERVE_CUT``: the
+#: counts before)
 SERVE_DRIVES = (
-    ("smollm-135m", ["--prefix-len", "512", "--requests", "200"],
+    ("smollm-135m", ["--prefix-len", "512", "--requests", "64"],
      {"flash_attention": 30, "ssd_scan": 0}),
-    ("mamba2-370m", ["--prefix-len", "300", "--requests", "100"],
+    ("mamba2-370m", ["--prefix-len", "300", "--requests", "48"],
      {"flash_attention": 0, "ssd_scan": 48}),
-    ("granite-moe-3b-a800m", ["--prefix-len", "512", "--requests", "64"],
+    ("granite-moe-3b-a800m", ["--prefix-len", "512", "--requests", "32"],
      {"flash_attention": 32, "ssd_scan": 0}),
-    ("internvl2-1b", ["--prefix-len", "64", "--requests", "64"],
+    ("internvl2-1b", ["--prefix-len", "64", "--requests", "32"],
      {"flash_attention": 24, "ssd_scan": 0}),
-    ("seamless-m4t-medium", ["--prefix-len", "256", "--requests", "64"],
+    ("seamless-m4t-medium", ["--prefix-len", "256", "--requests", "32"],
      {"flash_attention": 36, "ssd_scan": 0}),
-    ("zamba2-7b", ["--prefix-len", "512", "--requests", "48"],
+    ("zamba2-7b", ["--prefix-len", "512", "--requests", "24"],
      {"flash_attention": 13, "ssd_scan": 81}),
 )
+SERVE_CUT = {"smollm-135m": 200, "mamba2-370m": 100,
+             "granite-moe-3b-a800m": 64, "internvl2-1b": 64,
+             "seamless-m4t-medium": 64, "zamba2-7b": 48}
 #: the flash launches of each drive's prefill, by shape: (path, B, Sq, Sk,
 #: Hq, Hkv, D, causal, launches a prefill) — internvl2-1b's prompt is its
 #: 1,024 patches and 64 tokens; seamless's frames are as long as its
@@ -1306,6 +1342,13 @@ def phase_lm_serve(card: str) -> dict:
         check(n > 0 and counts == want,
               f"{arch}: kernel launches {counts}, expected {want}")
         out[arch] = (n, counts, st["params"])
+        requests = int(flags[flags.index("--requests") + 1])
+        saved = (st["prefill_s"] + decode_s) * (SERVE_CUT[arch] / requests
+                                                - 1)
+        RUN["d2_saved_s"] += saved
+        print(f"[lm serve] (d2) cut: {arch} {SERVE_CUT[arch]} -> {requests} "
+              f"requests, about {saved:.1f} s saved (this drive's prefill "
+              f"and decode seconds a request x the requests cut) ({card})")
         gc.collect()
         torch.cuda.empty_cache()
     ns = host_draw_ns()
@@ -1447,35 +1490,6 @@ def _lm_compare(arch: str, dev, card: str) -> None:
           f"flips allowed){route}; CPU prefill {cpu_s:.3f} s ({card})")
 
 
-def flash_work(b, sq, sk, hq, hkv, d, causal: bool, elem: int):
-    """(flops, bytes) the attention needs: 2 flops per multiply-add of
-    QK^T and of PV over the (query, key) pairs the mask keeps; q, k, v
-    read once and o written once."""
-    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
-    return 4 * b * hq * d * pairs, elem * (2 * b * sq * hq * d +
-                                           2 * b * sk * hkv * d)
-
-
-def ssd_work(b, s, h, p, n, chunk: int, elem: int):
-    """(tensor-core flops, CUDA-core flops, bytes) the chunked scan needs
-    on these rows: per chunk of l real rows, C.B^T over the l(l+1)/2 kept
-    pairs once per sequence (the heads share B and C; the bf16 kernel runs
-    it on the tensor cores), and per head the weighted sum over those
-    pairs (p wide), the inter-chunk product and the state update (l*p*n
-    each), 2 flops per multiply-add; the exps, the cumsum and the scalings
-    are lower-order and not counted.  Bytes: x, B, C, dt, A read once, y
-    and the final state written once."""
-    cb = rest = 0
-    for c0 in range(0, s, chunk):
-        l_ = min(chunk, s - c0)
-        pairs = l_ * (l_ + 1) // 2
-        cb += b * 2 * n * pairs
-        rest += b * h * (2 * p * pairs + 4 * l_ * p * n)
-    nbytes = elem * (2 * b * s * h * p + 2 * b * s * n) + 4 * (
-        b * s * h + h + b * h * p * n)
-    return cb, rest, nbytes
-
-
 def _kernel_name(key: str) -> str:
     """A profiler key's kernel name, without namespace and signature."""
     import re
@@ -1492,6 +1506,7 @@ def _time_flash(name, b, sq, sk, hq, hkv, d, causal, dev, card) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention import flash_work
     q, k, v = _flash_inputs(b, sq, sk, hq, hkv, d, torch.bfloat16, dev,
                             sq + d)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -1534,6 +1549,7 @@ def _time_ssd(name, b, s, h, p, n, chunk, dev, card) -> dict:
     the bound; the stages' device times from a profiler trace (log)."""
     import torch
     from repro_torch.kernels import ssd
+    from repro_torch.kernels.ssd import ssd_work
     x, dt, A, B, C = _ssd_inputs(b, s, h, p, n, torch.bfloat16, dev, s)
     kern = lambda: ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)  # noqa: E731
     ms = device_ms(kern, 20)
@@ -2307,6 +2323,253 @@ def phase_mesh(dev, grid_e, launches_e: int, card: str) -> None:
           f"barrier; over NCCL at world 1 (h1, h2's resume) only barrier: "
           f"a one-rank mesh dim issues no gather or reduce ({card})")
 
+# ---------------------------------------------------------------------------
+# the dry run (phase 11)
+# ---------------------------------------------------------------------------
+
+DRYRUN_DIR = ROOT / "artifacts" / "dryrun_torch"
+#: the cells whose per-device step runs on the card against its meta trace
+#: (single mesh): the flash and SSD prefills at 32k, a decode, and a train
+#: cell the dry run predicts fits in 80 GB
+DRYRUN_CHECKS = (("smollm-135m", "prefill_32k"), ("mamba2-370m", "prefill_32k"),
+                 ("smollm-135m", "decode_32k"), ("smollm-135m", "train_4k"))
+#: the trace's peak temporaries within this band of the caching
+#: allocator's peak above the step's baseline
+PEAK_BAND = (0.75, 1.25)
+#: the kernels at the 32k prefill shapes: flash (b, s, hq, hkv, d), causal;
+#: SSD (b, s, h, p, n, chunk); flash's plain version runs query blocks of
+#: FLASH_LONG_BLOCK rows against the keys before them
+FLASH_LONG = (2, 32768, 9, 3, 64)
+SSD_LONG = (2, 32768, 32, 64, 128, 256)
+FLASH_LONG_BLOCK = 2048
+
+
+def start_dryrun_sweep():
+    """Phase 11's sweep of the 64 cells on the meta device, started as a
+    child process at once (it needs no card, only host time, and runs
+    beside phases 2-10); its output goes to ``build/dryrun_sweep.log``."""
+    import os
+    log = ROOT / "build" / "dryrun_sweep.log"
+    log.parent.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--mesh", "both", "--force", "--out", str(DRYRUN_DIR)],
+            cwd=ROOT, env=env, stdout=fh, stderr=subprocess.STDOUT)
+    return proc, log, time.perf_counter()
+
+
+def _dryrun_records(sweep, card: str) -> dict:
+    """Wait for the sweep; check and print its 64 records."""
+    from repro_torch.configs import cells
+    proc, log, t0 = sweep
+    rc = proc.wait(timeout=900)
+    secs = time.perf_counter() - t0
+    tail = log.read_text()[-3000:]
+    check(rc == 0, f"dry-run sweep exited {rc}:\n{tail}")
+    recs = {}
+    print(f"[dryrun] {card}; constants: bf16 989e12 FLOP/s, HBM 3.35e12 B/s, "
+          f"collectives 400 Gb/s = 50 GB/s a GPU (NDR; the 16-wide model "
+          f"axis spans two NVLink nodes of 8); sweep {secs:.1f} s as a child "
+          f"process")
+    print("[dryrun] cell | chips | flops/dev | bytes/dev | collective "
+          "bytes/dev | bottleneck | MFU at roofline | temp GB | step s "
+          "(roofline)")
+    for arch, shape in cells():
+        for mesh, chips in (("single", 256), ("multi", 512)):
+            path = DRYRUN_DIR / f"{arch}__{shape}__{mesh}.json"
+            check(path.exists(), f"dry run wrote no {path.name}")
+            rec = json.loads(path.read_text())
+            rl = rec["roofline"]
+            check(rec["chips"] == chips and rl["chips"] == chips and
+                  rec["trace_device"] == "meta" and
+                  rl["flops_per_device"] > 0 and
+                  rl["hbm_bytes_per_device"] > 0 and
+                  rl["bottleneck"] in ("compute", "memory", "collective"),
+                  f"dry run {path.name}: {rl}")
+            recs[(arch, shape, mesh)] = rec
+            print(f"[dryrun] {arch} {shape} {mesh} | {chips} | "
+                  f"{rl['flops_per_device']:.4e} | "
+                  f"{rl['hbm_bytes_per_device']:.4e} | "
+                  f"{rl['collective_bytes_per_device']:.4e} | "
+                  f"{rl['bottleneck']} | {rl['mfu_at_roofline']:.4e} | "
+                  f"{rec['memory_analysis']['temp_size_in_bytes'] / 1e9:.3f}"
+                  f" | {rl['roofline_step_time_s']:.4e}")
+    check(len(recs) == 64, f"{len(recs)} dry-run records, expected 64")
+    return recs
+
+
+def _dryrun_on_card(recs: dict, card: str) -> dict:
+    """Each DRYRUN_CHECKS cell's per-device step on the card under the
+    cost trace, against the sweep's meta trace: kernel calls equal to the
+    launches of the traced step (the counters read around it), FLOPs
+    equal, peak temporaries within PEAK_BAND of the allocator's; the
+    counters set to 0 before the cell and read after it hold the traced
+    and the timed step's launches, twice the trace's calls.  Returns those
+    launches by kernel."""
+    import gc
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    from repro_torch.launch import dryrun
+    launches = {"flash_attention": 0, "ssd_scan": 0}
+    for arch, shape in DRYRUN_CHECKS:
+        meta = recs[(arch, shape, "single")]
+        fa.reset_launches()
+        ssd.reset_launches()
+        rec = dryrun.trace_cell(arch, shape, "single", device="cuda")
+        total = {k: v for k, v in {**fa.LAUNCHES, **ssd.LAUNCHES}.items()
+                 if v}
+        got = rec["card"]["launches"]
+        temp = meta["memory_analysis"]["temp_size_in_bytes"]
+        peak = rec["card"]["peak_bytes"]
+        ratio = temp / peak if peak else float("inf")
+        flops = rec["roofline"]["flops_per_device"]
+        want = meta["roofline"]["flops_per_device"]
+        print(f"[dryrun card] {arch} {shape} single, per-device batch "
+              f"{rec['per_device_batch']}: kernel launches of the traced "
+              f"step {json.dumps(got)}, of it and the timed step "
+              f"{json.dumps(total)} (meta trace "
+              f"{json.dumps(meta['kernel_calls'])}); FLOPs card "
+              f"{flops:.6e}, meta {want:.6e}; ops card {rec['ops']}, meta "
+              f"{meta['ops']}; peak temporaries: trace {temp / 1e9:.3f} GB, "
+              f"allocator {peak / 1e9:.3f} GB, ratio {ratio:.3f} (band "
+              f"{PEAK_BAND}); step {rec['card']['step_s']:.4f} s measured, "
+              f"{meta['roofline']['roofline_step_time_s']:.4f} s at the "
+              f"roofline ({meta['roofline']['bottleneck']}) ({card})")
+        check(got == meta["kernel_calls"] == rec["kernel_calls"] and
+              total == {k: 2 * v for k, v in got.items()},
+              f"{arch} {shape}: launches {got} ({total} with the timed "
+              f"step), trace {meta['kernel_calls']}, card trace "
+              f"{rec['kernel_calls']}")
+        check(flops == want, f"{arch} {shape}: FLOPs {flops} != {want}")
+        check(PEAK_BAND[0] <= ratio <= PEAK_BAND[1],
+              f"{arch} {shape}: peak ratio {ratio:.3f} outside {PEAK_BAND}")
+        for k, v in total.items():
+            launches[k] += v
+        del rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _flash_long(dev, launches: int, card: str) -> dict:
+    """bf16 flash at FLASH_LONG, causal: the kernel against its plain
+    version (query blocks of FLASH_LONG_BLOCK rows, each against the keys
+    up to its last row: every output row, without the whole [S, S]
+    scores), then kernel, SDPA (k, v expanded to the query heads first,
+    so that its flash backend takes them) and the plain version timed,
+    beside the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention import flash_work
+    b, s, hq, hkv, d = FLASH_LONG
+    q, k, v = _flash_inputs(b, s, s, hq, hkv, d, torch.bfloat16, dev, s + d)
+    kern = lambda: fa.flash_attention(q, k, v, causal=True)  # noqa: E731
+
+    def plain():
+        return torch.cat([fa.flash_attention_ref(
+            q[:, i:i + FLASH_LONG_BLOCK], k[:, :i + FLASH_LONG_BLOCK],
+            v[:, :i + FLASH_LONG_BLOCK], causal=True, q_offset=i)
+            for i in range(0, s, FLASH_LONG_BLOCK)], dim=1)
+    got = kern()
+    sync()
+    want = plain()
+    err, ok = _err(got, want, FLASH_TOL["bfloat16"])
+    share, in_ulp = _bf16_ulp_close(got, want)
+    del got, want
+    check(ok and in_ulp and share <= FLASH_BF16_SHARE,
+          f"flash {FLASH_LONG} bf16 causal: kernel != plain (max |err| "
+          f"{err}, {share:.2%} of outputs differ, within one ulp: {in_ulp})")
+    print(f"[lm kernel] flash dry-run prefill {list(FLASH_LONG)} bfloat16 "
+          f"causal: max |kernel - plain| {err!r} (tol "
+          f"{FLASH_TOL['bfloat16']}) over all {s} rows in blocks of "
+          f"{FLASH_LONG_BLOCK}; {share:.3%} of outputs differ, all within "
+          f"one bf16 ulp")
+    g = hq // hkv
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+              for x in (k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True)
+    lib1, ms1, ms2, lib2 = (device_ms(f, 10) for f in (sdpa, kern, kern,
+                                                       sdpa))
+    ms, lib_ms = min(ms1, ms2), min(lib1, lib2)
+    plain_ms = device_ms(plain, 2)
+    flops, nbytes = flash_work(b, s, s, hq, hkv, d, True, 2)
+    bound_ms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    print(f"[times] flash_attention dry-run prefill bf16 causal "
+          f"{list(FLASH_LONG)}: device time kernel {ms:.4f} ms ({ms1:.4f}, "
+          f"{ms2:.4f}), plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms "
+          f"({lib1:.4f}, {lib2:.4f}); bound {bound_ms:.6f} ms ({by}; {flops} "
+          f"flops, {nbytes} bytes), {bound_ms / ms:.1%} of the bound "
+          f"reached ({card})")
+    return {"launch": f"dry run smollm-135m prefill_32k {list(FLASH_LONG)} "
+                      f"causal", "launches": launches, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": lib_ms, "err": err}
+
+
+def _ssd_long(dev, launches: int, card: str) -> dict:
+    """bf16 SSD at SSD_LONG: the kernel against its plain version, whole,
+    then timed beside its bound."""
+    import torch
+    from repro_torch.kernels import ssd
+    b, s, h, p, n, chunk = SSD_LONG
+    x, dt, A, B, C = _ssd_inputs(b, s, h, p, n, torch.bfloat16, dev, s)
+    y, st = ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    sync()
+    y_r, st_r = ssd.ssd_scan_ref(x, dt, A, B, C, chunk=chunk)
+    err, ok = _err(y, y_r, SSD_TOL["bfloat16"])
+    serr, sok = _err(st, st_r, SSD_TOL["float32"])
+    big = float(y_r.float().abs().max())
+    del y, st, y_r, st_r
+    check(ok and sok, f"ssd {SSD_LONG} bf16: kernel != plain (y {err}, "
+                      f"state {serr})")
+    print(f"[lm kernel] ssd dry-run prefill {list(SSD_LONG)} bfloat16: max "
+          f"|kernel - plain| y {err!r}, state {serr!r} (tol "
+          f"{SSD_TOL['bfloat16']} + {SSD_TOL['bfloat16']} |plain|; the "
+          f"largest |plain| y {big!r})")
+    t = _time_ssd("dry-run prefill", b, s, h, p, n, chunk, dev, card)
+    return {"launch": f"dry run mamba2-370m prefill_32k [{b}, {s}, {h}, "
+                      f"{p}] n={n} chunk={chunk}", "launches": launches,
+            **t, "err": err}
+
+
+def _with_entry(record: dict, entry: dict, card: str) -> dict:
+    """``record`` (a kernel's line) with one more main-path launch shape."""
+    err = entry.pop("err")
+    entries = record["per_launch"] + [entry]
+    total = _summed(f"{record['name']}, with the dry run's shape", entries,
+                    card)
+    libs = [e["library_ms"] for e in entries]
+    return {**record, **total,
+            "launches": sum(e["launches"] for e in entries),
+            "max_abs_err": max(record["max_abs_err"], err),
+            "library_ms": None if None in libs else sum(libs)}
+
+
+def phase_dryrun(dev, sweep, lm_records: list, card: str) -> list:
+    """Phase 11: the dry run — the sweep's 64 records, four cells' per-
+    device steps on the card against their meta traces, the flash and SSD
+    kernels at the 32k prefill shapes against their plain versions and
+    timed; returns the kernel records with those shapes added."""
+    t0 = time.perf_counter()
+    recs = _dryrun_records(sweep, card)
+    launches = _dryrun_on_card(recs, card)
+    flash = _flash_long(dev, launches["flash_attention"], card)
+    ssd_entry = _ssd_long(dev, launches["ssd_scan"], card)
+    out = [_with_entry(r, flash if r["name"].startswith("flash") else
+                       ssd_entry, card) for r in lm_records]
+    RUN["phase11_s"] = time.perf_counter() - t0
+    print(f"[dryrun] phase 11: {RUN['phase11_s']:.1f} s on top of the "
+          f"sweep's child process; the (d2) cut saved about "
+          f"{RUN['d2_saved_s']:.1f} s ({card})")
+    return out
+
 
 def main() -> int:
     import torch
@@ -2321,6 +2584,17 @@ def main() -> int:
     card = card_line()
     t_all = time.perf_counter()
     phase_build(card)
+    sweep = start_dryrun_sweep()
+    try:
+        return _run_phases(dev, sweep, card, t_all)
+    finally:
+        if sweep[0].poll() is None:
+            sweep[0].kill()
+        sweep[0].wait()
+
+
+def _run_phases(dev, sweep, card: str, t_all: float) -> int:
+    import torch
     if sys.argv[1:] == ["--phase", "10"]:     # the mesh phase alone
         from repro_torch.cachesim import SimConfig, get_trace, run_policies
         cfg_b = SimConfig(n_caches=8, costs=(1.0, 2.0, 3.0, 1.5) * 2,
@@ -2331,6 +2605,14 @@ def main() -> int:
         phase_mesh(dev, grid_cold, grid_launches["cold"], card)
         print(f"[done] {time.perf_counter() - t_all:.1f} s; phases 1, 6 "
               f"and 10 only: no result")
+        return 1
+    if sys.argv[1:] == ["--phase", "11"]:     # the dry run alone
+        recs = _dryrun_records(sweep, card)
+        launches = _dryrun_on_card(recs, card)
+        _flash_long(dev, launches["flash_attention"], card)
+        _ssd_long(dev, launches["ssd_scan"], card)
+        print(f"[done] {time.perf_counter() - t_all:.1f} s; phases 1 and 11 "
+              f"only: no result")
         return 1
     phase_kernel_checks(dev)
     st_b, cfg_b, res_b, launches = phase_slice(dev, card)
@@ -2346,7 +2628,10 @@ def main() -> int:
     lm_records = phase_lm(dev, card)
     phase_train(dev, card)
     phase_mesh(dev, grid_cold, grid_launches["cold"], card)
-    print(f"[done] {time.perf_counter() - t_all:.1f} s")
+    lm_records = phase_dryrun(dev, sweep, lm_records, card)
+    print(f"[done] {time.perf_counter() - t_all:.1f} s in all (limit 1200 "
+          f"s); phase 11 {RUN['phase11_s']:.1f} s, paid for in part by the "
+          f"(d2) cut's about {RUN['d2_saved_s']:.1f} s")
     print(card)
     print(json.dumps({"kernels": [record, bloom_record, *lm_records]}))
     print(json.dumps({"ok": True, "device": {

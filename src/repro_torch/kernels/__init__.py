@@ -1,6 +1,34 @@
 """Kernels written by hand for Hopper (sm_90a), each beside its plain
-PyTorch version; ``ops`` picks one by the device of its inputs."""
+PyTorch version; ``ops`` picks one by the device of its inputs.
+
+The kernels are called through ctypes, so no dispatcher sees them.  A
+wrapper therefore announces each call with its work (``kernel_call``) to
+whatever cost trace is listening (``launch.cost.CostTrace`` registers
+itself in ``SINKS`` while active): the card's launch, the CPU's plain
+version and the meta device's shape-only path all report the same
+FLOPs and bytes, and the plain version's own operations are not counted
+twice.
+"""
+from contextlib import contextmanager
+
 import torch
+
+#: listeners of kernel calls: objects with ``kernel_enter(name, flops,
+#: nbytes)`` and ``kernel_exit()``
+SINKS: list = []
+
+
+@contextmanager
+def kernel_call(name: str, flops: float, nbytes: float):
+    """Around one call of kernel ``name`` that needs ``flops`` and moves
+    ``nbytes`` (each input read once, each output written once)."""
+    for sink in SINKS:
+        sink.kernel_enter(name, flops, nbytes)
+    try:
+        yield
+    finally:
+        for sink in reversed(SINKS):
+            sink.kernel_exit()
 
 
 def refuse_grad(kernel: str, instead: str, tensors) -> None:

@@ -11,14 +11,18 @@ hand-written kernel, chosen by type — bf16 the tensor-core kernel
 (``csrc/flash_wgmma.cu``: wgmma, TMA loads and stores), float32 the
 CUDA-core kernel (``csrc/flash.cu``), both built at first use by
 ``build.py`` — or raises on a type, shape or layout neither takes; a
-CPU tensor takes the plain version (``ref.py``).  NumPy inputs are
+CPU tensor takes the plain version (``ref.py``); a meta tensor (the dry
+run) passes the kernel's checks and gets an output of the kernel's shape
+and type, computing nothing and launching nothing.  NumPy inputs are
 placed on ``device`` first, which defaults to ``cuda`` (and raises
 without a GPU).  The TPU wrapper's ``block_q``/``block_k`` and its
 ``sq % block_q == 0`` rule have no counterpart: any Sq and Sk are
 taken.  Causal masking assumes that query and key positions both start
 at 0 — prefill, not decode.
 
-``LAUNCHES`` counts kernel launches (the plain path counts nothing).
+``LAUNCHES`` counts kernel launches (the plain and meta paths count
+nothing).  Every call, on any device, reports ``flash_work`` to an active
+cost trace (``kernels.kernel_call``).
 
 The kernels have no backward, so ``flash_attention`` refuses an input
 that requires a gradient (``kernels.refuse_grad``, on every device).
@@ -32,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, tensor_device
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import kernel_call, refuse_grad
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 #: kernel launches since the last ``reset_launches()``
@@ -46,6 +50,23 @@ DTYPES = (torch.float32, torch.bfloat16)
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def causal_pairs(sq: int, sk: int) -> int:
+    """(query, key) pairs a causal top-left mask keeps: query i sees keys
+    0..i, at most ``sk``."""
+    if sq <= sk:
+        return sq * (sq + 1) // 2
+    return sk * (sk + 1) // 2 + (sq - sk) * sk
+
+
+def flash_work(b, sq, sk, hq, hkv, d, causal: bool, elem: int):
+    """(flops, bytes) the attention needs: 2 flops per multiply-add of
+    QK^T and of PV over the (query, key) pairs the mask keeps; q, k, v
+    read once and o written once (``elem`` bytes a value)."""
+    pairs = causal_pairs(sq, sk) if causal else sq * sk
+    return 4 * b * hq * d * pairs, elem * (2 * b * sq * hq * d +
+                                           2 * b * sk * hkv * d)
 
 
 def _check(q, k, v) -> None:
@@ -73,10 +94,20 @@ def flash_attention(q, k, v, *, causal: bool = True,
     q, k, v = (x if isinstance(x, torch.Tensor) else
                torch.as_tensor(np.asarray(x), device=dev) for x in (q, k, v))
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    with kernel_call("flash_attention",
+                     *flash_work(b, sq, sk, hq, hkv, d, causal,
+                                 q.element_size())):
+        if q.device.type == "cpu":
+            return flash_attention_ref(q, k, v, causal=causal)
+        if q.device.type not in ("cuda", "meta"):
+            raise ValueError(f"unsupported device {q.device}")
+        return _kernel(q, k, v, causal)
+
+
+def _kernel(q, k, v, causal: bool) -> torch.Tensor:
+    """The kernel's checks, its output, and on the card its launch."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if q.dtype not in DTYPES or not (q.dtype == k.dtype == v.dtype):
@@ -93,6 +124,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if max(b, hq, -(-sq // 64)) > 65535 or b * sq * hq * d >= 1 << 62:
         raise ValueError(f"shape {tuple(q.shape)} exceeds the launch grid")
     out = torch.empty_like(q)
+    if q.device.type == "meta":
+        return out
     from repro_torch.kernels.flash_attention import build
     if bf16:
         fn = build.KERNEL_BF16.load().flash_attention_fwd_bf16

@@ -13,6 +13,9 @@ differ only by float32 rounding.
 
 Causal masking compares positions that both start at 0 (query i sees
 keys j <= i), as the TPU kernel and ``attention_naive`` do: prefill only.
+``q_offset`` shifts the query positions (query i sees keys j <= i +
+q_offset), so that a block of a long prefill's queries can be checked
+against the keys before it without the whole score matrix.
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ NEG_INF = -1e30
 F32 = torch.float32
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True) -> torch.Tensor:
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        q_offset: int = 0) -> torch.Tensor:
     """q: [B,Sq,Hq,D]; k/v: [B,Sk,Hkv,D] (model layout) -> [B,Sq,Hq,D] in
     q's type."""
     b, sq, hq, d = q.shape
@@ -31,7 +35,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True) -> torch.Tensor:
     qf = q.to(F32).reshape(b, sq, hkv, g, d) * (d ** -0.5)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(F32))     # [B,Hkv,G,Sq,Sk]
     if causal:
-        mask = (torch.arange(sq, device=q.device)[:, None]
+        mask = (torch.arange(sq, device=q.device)[:, None] + q_offset
                 >= torch.arange(sk, device=q.device)[None, :])
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)

@@ -11,14 +11,17 @@ hand-written kernels (``csrc/ssd.cu``, built at first use by ``build.py``:
 five stages — cumsum, C.B^T, chunk states, carry, output — on the
 current stream, scratch allocated here) or raises on a type, shape or
 layout they do not take; a CPU tensor takes the plain version
-(``ref.py``).  NumPy inputs are placed on ``device`` first, which
+(``ref.py``); a meta tensor (the dry run) passes the kernels' checks and
+gets outputs and scratch of the kernels' shapes and types, computing
+nothing and launching nothing.  NumPy inputs are placed on ``device`` first, which
 defaults to ``cuda`` (and raises without a GPU).  The kernels take x, B
 and C in one type (float32 or bfloat16), dt, A and the state in float32,
 head dims p in {16, 32, 64}, n a multiple of 4 with p * n <= 8192, and
 chunk <= 256.
 
 ``LAUNCHES`` counts calls that went to the card, one per ``ssd_scan``
-(the plain path counts nothing).
+(the plain and meta paths count nothing).  Every call, on any device,
+reports ``ssd_work`` to an active cost trace (``kernels.kernel_call``).
 
 The kernel has no backward, so ``ssd_scan`` refuses an input that
 requires a gradient (``kernels.refuse_grad``, on every device).  Training
@@ -31,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, tensor_device
-from repro_torch.kernels import refuse_grad
+from repro_torch.kernels import kernel_call, refuse_grad
 from repro_torch.kernels.ssd.ref import ssd_scan_ref
 
 #: kernel launches since the last ``reset_launches()``
@@ -46,6 +49,24 @@ F32 = torch.float32
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def ssd_work(b, s, h, p, n, chunk: int, elem: int):
+    """(tensor-core flops, CUDA-core flops, bytes) the chunked scan needs
+    on these rows: per chunk of l real rows, C.B^T over the l(l+1)/2 kept
+    pairs once per sequence (the heads share B and C; the bf16 kernel runs
+    it on the tensor cores), and per head the weighted sum over those
+    pairs (p wide), the inter-chunk product and the state update (l*p*n
+    each), 2 flops per multiply-add; the exps, the cumsum and the scalings
+    are lower-order and not counted.  Bytes: x, B, C (``elem`` bytes a
+    value), dt, A read once, y and the final state written once."""
+    full, tail = divmod(s, chunk)
+    pairs = full * (chunk * (chunk + 1) // 2) + tail * (tail + 1) // 2
+    cb = b * 2 * n * pairs
+    rest = b * h * (2 * p * pairs + 4 * s * p * n)
+    nbytes = elem * (2 * b * s * h * p + 2 * b * s * n) + 4 * (
+        b * s * h + h + b * h * p * n)
+    return cb, rest, nbytes
 
 
 def _check(x, dt, A, B, C, chunk, initial_state) -> None:
@@ -110,16 +131,24 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, initial_state=None,
         initial_state = torch.as_tensor(np.asarray(initial_state), device=dev)
     _check(x, dt, A, B, C, chunk, initial_state)
     chunk = int(chunk)
-    if x.device.type == "cpu":
-        return ssd_scan_ref(x, dt, A, B, C, chunk=chunk,
-                            initial_state=initial_state)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    cb, rest, nbytes = ssd_work(b, s, h, p, n, chunk, x.element_size())
+    with kernel_call("ssd_scan", cb + rest, nbytes):
+        if x.device.type == "cpu":
+            return ssd_scan_ref(x, dt, A, B, C, chunk=chunk,
+                                initial_state=initial_state)
+        if x.device.type not in ("cuda", "meta"):
+            raise ValueError(f"unsupported device {x.device}")
+        return _kernel(x, dt, A, B, C, chunk, initial_state)
+
+
+def _kernel(x, dt, A, B, C, chunk: int, initial_state):
+    """The kernels' checks, outputs and scratch, and on the card the
+    launch."""
     _kernel_checks(x, dt, A, B, C, chunk, initial_state)
     b, s, h, p = x.shape
     n = B.shape[-1]
-    from repro_torch.kernels.ssd.build import load
-    lib = load()
     nc = -(-s // chunk)
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=F32, device=x.device)
@@ -128,6 +157,10 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, initial_state=None,
     cum = torch.empty((b, h, nc, chunk), dtype=F32, device=x.device)
     cb = torch.empty((b, nc, chunk, chunk), dtype=F32, device=x.device)
     st = torch.empty((b, h, nc, p, n), dtype=F32, device=x.device)
+    if x.device.type == "meta":
+        return y, state
+    from repro_torch.kernels.ssd.build import load
+    lib = load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.ssd_scan_fwd(

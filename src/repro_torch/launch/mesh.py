@@ -18,6 +18,10 @@ calls the constructor (a rank outside the mesh gets one whose
   process group from ``torch.distributed.run``'s environment (``RANK``,
   ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT``), ``nccl`` for ``cuda``
   and ``gloo`` for ``cpu`` unless a backend is named, and tear it down.
+* :func:`fake_world` — a world of N ranks in this one process on
+  torch's ``fake`` backend (collectives return without moving data),
+  this process rank 0: the dry run's 256 and 512 ranks, which no single
+  host has;
 * :func:`run_world` — a world of N spawned processes on this host
   meeting at a ``FileStore`` (no port), each running a function; it
   raises, and stops the others, when a rank fails or the deadline
@@ -28,6 +32,7 @@ from __future__ import annotations
 import math
 import os
 import time
+from contextlib import contextmanager
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -113,10 +118,12 @@ def make_mesh(shape, axes, *, device_type: Optional[str] = None,
                       mesh_dim_names=tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: Optional[str] = None) -> DeviceMesh:
     """(16, 16) ``("data", "model")``, or (2, 16, 16)
     ``("pod", "data", "model")`` — the second data axis spans the slower
-    inter-pod links.  Raises with fewer ranks than the mesh needs."""
+    inter-pod links — over ``device_type`` (:func:`mesh_device_type`'s
+    unless named).  Raises with fewer ranks than the mesh needs."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     n = math.prod(shape)
@@ -126,7 +133,7 @@ def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
             f"mesh {shape} needs {n} ranks, found {have}; start {n} "
             f"processes (python -m torch.distributed.run --nproc-per-node "
             f"...) before building it")
-    return make_mesh(shape, axes)
+    return make_mesh(shape, axes, device_type=device_type)
 
 
 def data_axes(mesh: DeviceMesh) -> tuple:
@@ -150,6 +157,29 @@ def make_sweep_mesh(*, max_devices: Optional[int] = None
     if key not in _SWEEP_MESHES:        # one set of groups per world
         _SWEEP_MESHES[key] = make_mesh((n,), ("cells",))
     return _SWEEP_MESHES[key]
+
+
+@contextmanager
+def fake_world(world: int):
+    """While open, the default process group is a ``fake`` one of
+    ``world`` ranks in this process, which is rank 0: meshes build over
+    it, and its collectives return at once without writing their outputs
+    (harmless on meta tensors, whose values do not exist; on the card
+    they leave the received buffers as allocated).  A mesh over it needs
+    its device type named (``make_production_mesh(device_type=...)``).
+    Refuses to start over a group already started; tears the group down
+    on exit."""
+    # importing the module registers the ``fake`` backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already started; the fake "
+                           "world needs the default group to itself")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        shutdown_distributed()
 
 
 def _world_entry(fn, rank: int, world: int, store_path: str, device: str,

@@ -18,6 +18,10 @@ in seconds where the CPU takes minutes.  A given generator gives the same
 weights wherever they are placed; the default one (seed 0) lives on the
 target device, and the card's and the CPU's random streams differ, so
 the default weights on ``cpu`` and on ``cuda`` are not the same.
+``init_params(cfg, device="meta")`` builds every leaf as a meta tensor —
+shape and type, nothing drawn or allocated — so that the dry run holds
+the published configs (qwen3-moe-30b-a3b's 120 GB in float32 among them)
+on any host.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -81,9 +86,28 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     differ between devices) and placed on ``device`` (``cuda`` unless
     asked)."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        with _OnMeta():
+            return get_model(cfg).init(torch.Generator())
     gen = generator if generator is not None else \
         torch.Generator(dev).manual_seed(0)
     params = get_model(cfg).init(gen)
     if gen.device.type == dev.type:
         return params
     return tree_map(lambda t: t.to(dev), params)
+
+
+#: the factories the models' ``init`` calls (``device=`` the generator's)
+_FACTORIES = {torch.empty, torch.zeros, torch.ones, torch.randn, torch.rand}
+
+
+class _OnMeta(TorchFunctionMode):
+    """While active, the tensor factories of ``_FACTORIES`` allocate on the
+    meta device whatever device they are given; operations on meta
+    tensors (``trunc_normal_``, ``log``, ``.to(dtype)``) draw nothing."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if func in _FACTORIES:
+            kwargs["device"] = "meta"
+        return func(*args, **kwargs)

@@ -1,12 +1,30 @@
-"""Model factory and concrete batches (the port of the JAX package's
-``repro.models.registry``)."""
+"""Model factory, abstract inputs and concrete batches (the port of the
+JAX package's ``repro.models.registry``).
+
+``input_specs(cfg, shape)`` returns meta tensors — shapes and types, no
+storage — for every model input of the step that the shape's ``kind``
+runs, as the reference's ``ShapeDtypeStruct`` stand-ins:
+
+  * ``train``   -> ``train_step(state, batch)``
+  * ``prefill`` -> ``model.prefill(params, batch)``
+  * ``decode``  -> ``model.decode_step(params, cache, tokens)`` (one new
+                   token against a KV/state cache of ``seq_len``)
+
+Token ids are int64 here where the reference's are int32 (torch indexes
+with int64; ``make_concrete_batch`` draws int64 too); every other type is
+the reference's.  A decode cache's ``len`` stays a Python int — the
+decode steps read it with ``int()``, which a meta tensor refuses — set to
+``seq_len - 1``, so that the step writes the cache's last position and
+attends to all of it.  Modality frontends are stubs, as in the reference:
+VLM patch embeddings and audio frames are precomputed inputs.
+"""
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.hybrid import Zamba2LM
@@ -56,3 +74,62 @@ def make_concrete_batch(cfg: ModelConfig, b: int, s: int,
         out[name] = torch.randint(0, cfg.vocab, (b, s_text), generator=gen,
                                   dtype=torch.int64).to(dev)
     return out
+
+
+#: the token ids' type (the reference's int32 maps to it)
+TOKEN_DTYPE = torch.int64
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, b: int, s: int, *,
+                with_labels: bool) -> Dict[str, torch.Tensor]:
+    """Meta tensors of a batch: tokens [b, s] (and labels); for ``vlm``
+    tokens [b, s - n_patches] and ``patch_embeds`` [b, n_patches, d], for
+    ``encdec`` ``frames`` [b, s, d] beside them, in the compute type."""
+    cdt = dtype_of(cfg.dtype)
+    s_text = s - cfg.n_patches if cfg.family == "vlm" else s
+    out = {}
+    if cfg.family == "vlm":
+        out["patch_embeds"] = _meta((b, cfg.n_patches, cfg.d_model), cdt)
+    if cfg.family == "encdec":
+        out["frames"] = _meta((b, s, cfg.d_model), cdt)
+    out["tokens"] = _meta((b, s_text), TOKEN_DTYPE)
+    if with_labels:
+        out["labels"] = _meta((b, s_text), TOKEN_DTYPE)
+    return out
+
+
+def decode_specs(cfg: ModelConfig, b: int, s: int
+                 ) -> Tuple[Dict[str, Any], torch.Tensor]:
+    """(cache, tokens [b]) of ``decode_step``: the cache of the model's own
+    ``cache_spec`` as meta tensors, its ``len`` the int ``s - 1``."""
+    model = get_model(cfg)
+    if cfg.family == "encdec":
+        spec = model.cache_spec(b, s, s)
+    elif cfg.family == "ssm":
+        spec = model.cache_spec(b)
+    else:
+        spec = model.cache_spec(b, s)
+    cache = {name: _meta(shape, dt) for name, (shape, dt) in spec.items()
+             if name != "len"}
+    if "len" in spec:
+        cache["len"] = s - 1
+    return cache, _meta((b,), TOKEN_DTYPE)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                batch: Optional[int] = None) -> Dict[str, Any]:
+    """The step's inputs for ``shape`` as meta tensors: ``{"batch"}`` for
+    train and prefill, ``{"cache", "tokens"}`` for decode.  ``batch``
+    replaces the global batch (a device's share of it)."""
+    b = shape.global_batch if batch is None else batch
+    s = shape.seq_len
+    if shape.kind == "train":
+        return {"batch": batch_specs(cfg, b, s, with_labels=True)}
+    if shape.kind == "prefill":
+        return {"batch": batch_specs(cfg, b, s, with_labels=False)}
+    cache, toks = decode_specs(cfg, b, s)
+    return {"cache": cache, "tokens": toks}

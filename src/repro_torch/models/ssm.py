@@ -188,7 +188,9 @@ def mamba_forward(p: Params, x, cfg: ModelConfig, *, initial_state=None,
         hist = xbc if conv_init is None else \
             torch.cat([conv_init.to(cdt), xbc], dim=1)
         if hist.shape[1] >= w1:
-            conv_cache = hist[:, hist.shape[1] - w1:, :]
+            # a copy: a view would keep the whole [B, S, ...] projection
+            # alive for as long as the cache lives
+            conv_cache = hist[:, hist.shape[1] - w1:, :].clone()
         else:
             conv_cache = F.pad(hist, (0, 0, w1 - hist.shape[1], 0))
         return out, final_state, conv_cache

@@ -15,7 +15,9 @@ The LM kernels are float32 arithmetic in another summation order: each
 test states its tolerance.  Both kernels refuse inputs that require a
 gradient, and a reduced train step (which reaches no kernel) on the card
 equals the CPU's at 1e-4.  The grid layer on the card (an exhaustive
-penalty grid, a store round trip) equals the CPU's field for field.
+penalty grid, a store round trip) equals the CPU's field for field.  The
+dry run's per-device step traced on the meta device counts the card's
+kernel launches and the same FLOPs.
 """
 import dataclasses
 
@@ -632,3 +634,33 @@ def test_world_one_nccl_mesh_train_step_equals_plain(card):
         torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-6)
     for a, b in zip(tree_leaves(plain["params"]), tree_leaves(new)):
         torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-370m", "zamba2-7b"])
+def test_dryrun_trace_equals_card(card, arch, kind):
+    """The dry run's per-device step of a reduced config traced on the
+    meta device and run on the card under the same cost trace: the card's
+    kernel launches equal the trace's kernel calls exactly, and both count
+    the same FLOPs and operations."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    from repro_torch.launch import dryrun
+    cfg = get_config(arch).reduced()
+    shape = ShapeConfig("small", 64, 2, kind)
+    meta = dryrun.run_traced(*dryrun.build_step(cfg, shape, None,
+                                                torch.device("meta")))
+    fa.reset_launches()
+    ssd.reset_launches()
+    got = dryrun.run_traced(*dryrun.build_step(cfg, shape, None, card))
+    torch.cuda.synchronize()
+    total = {k: v for k, v in {**fa.LAUNCHES, **ssd.LAUNCHES}.items() if v}
+    launches = got["card"]["launches"]
+    assert launches == meta["kernel_calls"] == got["kernel_calls"]
+    # the traced step and the timed one
+    assert total == {k: 2 * v for k, v in launches.items()}
+    assert got["flops"] == meta["flops"] and got["ops"] == meta["ops"]
+    assert (kind == "prefill") == bool(launches)

@@ -69,7 +69,9 @@ def test_port_imports_neither_jax_nor_reference():
                  "repro_torch.optim.adamw", "repro_torch.data.pipeline",
                  "repro_torch.checkpoint.ckpt",
                  "repro_torch.distributed.compression",
-                 "repro_torch.distributed.ft", "repro_torch.launch.train"):
+                 "repro_torch.distributed.ft", "repro_torch.launch.train",
+                 "repro_torch.launch.specs", "repro_torch.launch.cost",
+                 "repro_torch.launch.roofline", "repro_torch.launch.dryrun"):
         assert name in mods, name
     code = (
         "import importlib, sys\n"
@@ -98,6 +100,26 @@ def test_chip_smoke_imports_neither_jax_nor_reference():
     roots = {n.split(".")[0] for n in names}
     assert "repro_torch" in roots and "torch" in roots
     assert not roots & {"jax", "jaxlib", "repro"}, sorted(names)
+
+
+@pytest.mark.parametrize("name", ["torch_quickstart", "torch_scenario_sweep",
+                                  "torch_serve_prefix_cache",
+                                  "torch_train_lm", "torch_elastic_restart"])
+def test_torch_examples_import_neither_jax_nor_reference(name):
+    """The port's examples drive ``repro_torch`` alone: no import in them
+    names ``jax``, the reference package ``repro`` or ``benchmarks``."""
+    import ast
+    tree = ast.parse((Path(SRC).parent / "examples" / f"{name}.py")
+                     .read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    roots = {n.split(".")[0] for n in names}
+    assert not roots & {"jax", "jaxlib", "repro", "benchmarks"}, \
+        sorted(names)
 
 
 def test_entry_points_raise_without_gpu(monkeypatch):
@@ -190,7 +212,8 @@ def test_bloom_entry_points_raise_without_gpu(monkeypatch):
 
 def test_lm_entry_points_raise_without_gpu(monkeypatch):
     """The serving engine, the weight draw and both LM kernel wrappers run
-    on the card by default; their inputs' device decides for a tensor."""
+    on the card by default; their inputs' device decides for a tensor (a
+    meta tensor gets the kernel's output shapes and no launch)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd
@@ -217,14 +240,20 @@ def test_lm_entry_points_raise_without_gpu(monkeypatch):
     assert fa.flash_attention(q, q, q, device="cpu").device.type == "cpu"
     y, st = ssd.ssd_scan(*ssd_args, chunk=4, device="cpu")
     assert y.shape == (1, 4, 2, 16) and st.shape == (1, 2, 16, 8)
+    # meta tensors (the dry run) take the kernels' shape-only path: the
+    # kernels' outputs, no launch, never the plain version's values
     meta = torch.empty((1, 4, 2, 16), device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        fa.flash_attention(meta, meta, meta)
-    with pytest.raises(ValueError, match="unsupported device"):
-        ssd.ssd_scan(meta, torch.empty((1, 4, 2), device="meta"),
-                     torch.empty(2, device="meta"),
-                     torch.empty((1, 4, 8), device="meta"),
-                     torch.empty((1, 4, 8), device="meta"), chunk=4)
+    fa.reset_launches()
+    ssd.reset_launches()
+    o = fa.flash_attention(meta, meta, meta)
+    assert o.device.type == "meta" and o.shape == meta.shape
+    y, st = ssd.ssd_scan(meta, torch.empty((1, 4, 2), device="meta"),
+                         torch.empty(2, device="meta"),
+                         torch.empty((1, 4, 8), device="meta"),
+                         torch.empty((1, 4, 8), device="meta"), chunk=4)
+    assert y.device.type == st.device.type == "meta"
+    assert y.shape == (1, 4, 2, 16) and st.shape == (1, 2, 16, 8)
+    assert fa.LAUNCHES["flash_attention"] == ssd.LAUNCHES["ssd_scan"] == 0
 
 
 def _stack_layers(tree):
