@@ -1940,6 +1940,19 @@ COMP_SEED = 1900
 #: a batch of 2 x 256 tokens, float32, capacity factor 8
 MOE_LAYERS, MOE_BATCH, MOE_SEQ, MOE_CAP, MOE_TOL = 4, 2, 256, 8.0, 2e-3
 MOE_SEED = 19
+#: (h6) the data axes on two ranks of card 0: smollm-135m's published
+#: config in float32, DP_STEPS steps of 8 x 128 tokens on (data 2, model
+#: 1), row r of the batch masked to its first 128 - 12 r tokens (the two
+#: data shards hold unequal counts), at (h2)'s gates; decode at batch 2
+#: on (1, 2) with the KV sequence cut in two, DEC_STEPS steps after a
+#: DEC_PROMPT-token prefill, float32 logits within DEC_TOL_F32 of the
+#: largest |logit|, bf16 within BF16_LOGIT_SHARE.  AdamW's early steps
+#: move a weight whose gradient is near eps by up to lr for a rounding
+#: of that gradient; at a learning rate of 1e-3 the data-parallel sums
+#: left the parameters 1.6e-4 from world 1's, so (h6) trains at the
+#: reference's default 3e-4
+DP_STEPS, DP_SEED, DP_LR, DEC_PROMPT, DEC_STEPS = 5, 22, 3e-4, 64, 16
+DEC_TOL_F32, BF16_LOGIT_SHARE = 1e-5, 0.02
 
 
 def _mesh_dir() -> Path:
@@ -2206,6 +2219,180 @@ def _mesh_moe(root: Path, card: str) -> None:
           f"world {world_s:.1f} s with the processes' start ({card})")
 
 
+def _h6_train(rank, mesh):
+    """(h6) DP_STEPS data-parallel ZeRO-1 steps on ``mesh`` and, on rank 0,
+    the world-1 steps from the same weights and batches: the numbers
+    (h6) prints and checks."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData, to_device
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import specs as S
+    from repro_torch.models import get_model, init_params
+    from repro_torch.optim import OptConfig, init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(get_config("smollm-135m"), dtype="float32")
+    model, ocfg = get_model(cfg), OptConfig(lr=DP_LR, warmup_steps=2,
+                                            total_steps=50)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(DP_SEED),
+                         "cuda")
+    data = SyntheticLMData(DataConfig(batch=8, seq=128, vocab=cfg.vocab),
+                           cfg)
+    keep = 128 - 12 * torch.arange(8, device="cuda")[:, None]
+
+    def batch_at(i):
+        b = to_device(data.batch_at(i), "cuda")
+        b["mask"] = (torch.arange(128, device="cuda")[None] < keep).float()
+        return b
+    state = init_train_state(params, ocfg)
+    state = S.lay_out(state, mesh, S.state_shardings(mesh, cfg, state))
+    mv = sum(sh.local(x).numel() * 4 for k in ("m", "v")
+             for x in tree_leaves(state[k]))
+    step = make_train_step(model, ocfg)
+    losses, tokens, step_s = [], [], []
+    for i in range(DP_STEPS):
+        b = batch_at(i)
+        b = S.lay_out(b, mesh, S.batch_shardings(mesh, cfg, b))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        losses.append(float(met["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        tokens.append(float(met["tokens"]))
+    new = sh.unshard(state["params"])
+    if rank != 0:
+        return None
+    one = init_train_state(params, ocfg)
+    want = []
+    for i in range(DP_STEPS):
+        one, met = step(one, batch_at(i))
+        want.append(float(met["loss"]))
+    worst = max(float((a - b).abs().max()) for a, b in
+                zip(tree_leaves(new), tree_leaves(one["params"])))
+    close = all(torch.allclose(a, b, rtol=MESH_PARAM_TOL,
+                               atol=MESH_PARAM_TOL)
+                for a, b in zip(tree_leaves(new), tree_leaves(one["params"])))
+    mv1 = sum(x.numel() * 4 for k in ("m", "v") for x in tree_leaves(one[k]))
+    return {"losses": losses, "world1": want, "tokens": tokens,
+            "want_tokens": float(keep.sum()),
+            "rel": _rel(losses, want), "param_diff": worst,
+            "params_close": close, "mv_bytes": mv, "mv_bytes_world1": mv1,
+            "step_ms": 1e3 * float(np.mean(step_s[1:]))}
+
+
+def _h6_decode(rank, mesh, dtype: str):
+    """(h6) greedy decode of smollm-135m (``dtype`` compute) at batch 2:
+    world 1 from a DEC_PROMPT-token prefill, then the same steps fed
+    world 1's tokens with the cache's KV sequence cut over ``mesh``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import specs as S
+    from repro_torch.models import get_model, init_params
+    cfg = dataclasses.replace(get_config("smollm-135m"), dtype=dtype)
+    model = get_model(cfg)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(DP_SEED),
+                         "cuda")
+    prompt = torch.randint(0, cfg.vocab, (2, DEC_PROMPT), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(6))
+    max_len = DEC_PROMPT + DEC_STEPS
+    logits, cache = model.prefill(params, {"tokens": prompt}, max_len)
+    sharded = {k: v if k == "len" else v.clone() for k, v in cache.items()}
+    shape = ShapeConfig("h6", max_len, 2, "decode")
+    sharded = S.lay_out(sharded, mesh, S.cache_layout(mesh, cfg, sharded,
+                                                      shape))
+    tok = logits.argmax(-1)
+    want, got, toks = [], [], []
+    t_one = t_mesh = 0.0
+    with torch.no_grad():
+        for _ in range(DEC_STEPS):
+            toks.append(tok)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = model.decode_step(params, cache, tok)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            glg, sharded = model.decode_step(
+                params, sharded, S.lay_out(tok, mesh,
+                                           S.token_shardings(mesh, shape)))
+            glg = sh.full(glg)
+            torch.cuda.synchronize()
+            t_one += t1 - t0
+            t_mesh += time.perf_counter() - t1
+            want.append(lg.float())
+            got.append(glg.float())
+            tok = lg.argmax(-1)
+    want, got = torch.stack(want), torch.stack(got)
+    err = float((got - want).abs().max())
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > err
+    same = got.argmax(-1) == want.argmax(-1)
+    return {"dtype": dtype, "share": err / float(want.abs().max()),
+            "tokens_equal": bool(same.all()),
+            "clear_equal": bool(same[clear].all()),
+            "clear": int(clear.sum()), "n": int(clear.numel()),
+            "ms_world1": 1e3 * t_one / DEC_STEPS,
+            "ms_mesh": 1e3 * t_mesh / DEC_STEPS}
+
+
+def _h6_world(rank, world, out_dir):
+    from repro_torch.launch.mesh import make_mesh
+    res = {"train": _h6_train(rank, make_mesh((2, 1), ("data", "model")))}
+    mesh = make_mesh((1, 2), ("data", "model"))
+    res["decode"] = [_h6_decode(rank, mesh, dt)
+                     for dt in ("float32", "bfloat16")]
+    if rank == 0:
+        (Path(out_dir) / "h6.json").write_text(json.dumps(res))
+
+
+def _mesh_data_axes(root: Path, card: str) -> None:
+    """(h6) the data axes on two ranks of card 0 over gloo: the data-
+    parallel ZeRO-1 step and the sequence-sharded decode against world
+    1."""
+    from repro_torch.launch.mesh import run_world
+    t0 = time.perf_counter()
+    run_world(_h6_world, 2, root / "h6.store", args=(str(root),),
+              device="cuda", backend="gloo", timeout=600)
+    secs = time.perf_counter() - t0
+    res = json.loads((root / "h6.json").read_text())
+    tr = res["train"]
+    check(tr["rel"] <= MESH_TOL_H2 and tr["params_close"] and
+          tr["tokens"] == [tr["want_tokens"]] * DP_STEPS,
+          f"h6 train: losses {tr['losses']} vs world 1 {tr['world1']}, "
+          f"params max |diff| {tr['param_diff']}, tokens {tr['tokens']}")
+    check(2 * tr["mv_bytes"] == tr["mv_bytes_world1"],
+          f"h6 train: m/v bytes a rank {tr['mv_bytes']} vs world 1 "
+          f"{tr['mv_bytes_world1']}")
+    print(f"[mesh h6] data-parallel ZeRO-1 step, smollm-135m published "
+          f"float32, (2, 1) mesh over gloo on card 0, {DP_STEPS} steps of "
+          f"8 x 128 (unequal masks, {tr['want_tokens']:.0f} tokens): losses "
+          f"{tr['losses']} vs world 1 {tr['world1']}: max relative "
+          f"difference {tr['rel']!r} (tol {MESH_TOL_H2}); final params max "
+          f"|diff| {tr['param_diff']!r} (tol {MESH_PARAM_TOL}); m + v "
+          f"{tr['mv_bytes']} bytes a rank vs {tr['mv_bytes_world1']} at "
+          f"world 1; {tr['step_ms']:.1f} ms a step ({card})")
+    for d in res["decode"]:
+        if d["dtype"] == "float32":
+            ok = d["share"] <= DEC_TOL_F32 and d["tokens_equal"]
+            gate = f"tol {DEC_TOL_F32}, tokens equal {d['tokens_equal']}"
+        else:
+            ok = d["share"] <= BF16_LOGIT_SHARE and d["clear_equal"]
+            gate = (f"tol {BF16_LOGIT_SHARE}, argmax equal at the "
+                    f"{d['clear']} of {d['n']} rows whose top-two gap "
+                    f"exceeds the error: {d['clear_equal']}")
+        check(ok, f"h6 decode {d}")
+        print(f"[mesh h6] sequence-sharded decode, smollm-135m published "
+              f"{d['dtype']}, batch 2, (1, 2) mesh, KV sequence "
+              f"{DEC_PROMPT + DEC_STEPS} cut in two, {DEC_STEPS} steps after "
+              f"a {DEC_PROMPT}-token prefill: logits within "
+              f"{d['share']!r} of the largest |logit| of world 1's ({gate}); "
+              f"{d['ms_mesh']:.2f} ms a step on the mesh, "
+              f"{d['ms_world1']:.2f} ms at world 1 ({card})")
+    print(f"[mesh h6] {secs:.1f} s with the processes' start ({card})")
+
+
 def _grid_fields(grid) -> dict:
     return {key: {p: (dataclasses.asdict(r), r.to_dict())
                   for p, r in cell.items()} for key, cell in grid.items()}
@@ -2302,7 +2489,8 @@ def _mesh_grid(root: Path, grid_e, launches_e: int, dev, card: str) -> None:
 def phase_mesh(dev, grid_e, launches_e: int, card: str) -> None:
     """Phase 10: the device mesh — the launcher on meshes (h1, h2), the
     int8 all-reduce (h3), MoE expert parallelism (h4), the sweep mesh
-    (h5)."""
+    (h5), the data-parallel ZeRO-1 step and the sequence-sharded decode
+    (h6)."""
     import shutil
     root = _mesh_dir()
     shutil.rmtree(root, ignore_errors=True)
@@ -2313,15 +2501,19 @@ def phase_mesh(dev, grid_e, launches_e: int, card: str) -> None:
         _mesh_psum(root, card)
         _mesh_moe(root, card)
         _mesh_grid(root, grid_e, launches_e, dev, card)
+        _mesh_data_axes(root, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"[mesh] phase 10: {time.perf_counter() - t0:.1f} s; carried "
           f"over gloo on card 0's tensors: all_reduce SUM float32 (h2's "
           f"norm, h3's float reference), MAX float32 and SUM int32 (h3), "
           f"all_gather_into_tensor (h2's parameter gathers and checkpoint, "
-          f"h4's token blocks, h5's table rows), all_to_all_single (h4), "
-          f"barrier; over NCCL at world 1 (h1, h2's resume) only barrier: "
-          f"a one-rank mesh dim issues no gather or reduce ({card})")
+          f"h4's token blocks, h5's table rows, h6's ZeRO-1 parameter "
+          f"slices), reduce_scatter_tensor (h6's gradients), all_reduce "
+          f"MAX float32 (h6's decode maxima), all_to_all_single (h4), "
+          f"barrier; over NCCL at world 1 (h1, h2's resume) only "
+          f"barrier: a one-rank mesh dim issues no gather or reduce "
+          f"({card})")
 
 # ---------------------------------------------------------------------------
 # the dry run (phase 11)
@@ -2374,26 +2566,46 @@ def _dryrun_records(sweep, card: str) -> dict:
           f"collectives 400 Gb/s = 50 GB/s a GPU (NDR; the 16-wide model "
           f"axis spans two NVLink nodes of 8); sweep {secs:.1f} s as a child "
           f"process")
+    from repro_torch.configs import get_config
+    from repro_torch.launch.cost import COLLECTIVE_KINDS
+    from repro_torch.launch.dryrun import DEPARTURES
     print("[dryrun] cell | chips | flops/dev | bytes/dev | collective "
-          "bytes/dev | bottleneck | MFU at roofline | temp GB | step s "
-          "(roofline)")
+          "bytes/dev (all-gather, all-reduce, reduce-scatter, all-to-all) "
+          "| bottleneck | MFU at roofline | temp GB | step s (roofline)")
     for arch, shape in cells():
         for mesh, chips in (("single", 256), ("multi", 512)):
             path = DRYRUN_DIR / f"{arch}__{shape}__{mesh}.json"
             check(path.exists(), f"dry run wrote no {path.name}")
             rec = json.loads(path.read_text())
-            rl = rec["roofline"]
+            rl, coll = rec["roofline"], rec["collectives"]
             check(rec["chips"] == chips and rl["chips"] == chips and
                   rec["trace_device"] == "meta" and
                   rl["flops_per_device"] > 0 and
                   rl["hbm_bytes_per_device"] > 0 and
                   rl["bottleneck"] in ("compute", "memory", "collective"),
                   f"dry run {path.name}: {rl}")
+            # the data axes and the cache as the reference lays them out:
+            # a train cell reduce-scatters its gradient, a decode cell
+            # all-reduces its softmax statistics, a MoE train or prefill
+            # cell exchanges tokens with the expert shards
+            kind = shape.split("_")[0]
+            family = get_config(arch).family
+            check(rec["departures"] == DEPARTURES and
+                  list(coll) == list(COLLECTIVE_KINDS) and
+                  (coll["reduce-scatter"] > 0) == (kind == "train") and
+                  (kind not in ("decode", "long") or family == "ssm" or
+                   coll["all-reduce"] > 0) and
+                  (coll["all-to-all"] > 0) ==
+                  (family == "moe" and kind in ("train", "prefill")),
+                  f"dry run {path.name}: departures {rec['departures']}, "
+                  f"collectives {coll}")
             recs[(arch, shape, mesh)] = rec
             print(f"[dryrun] {arch} {shape} {mesh} | {chips} | "
                   f"{rl['flops_per_device']:.4e} | "
                   f"{rl['hbm_bytes_per_device']:.4e} | "
-                  f"{rl['collective_bytes_per_device']:.4e} | "
+                  f"{rl['collective_bytes_per_device']:.4e} ("
+                  f"{coll['all-gather']:.4e}, {coll['all-reduce']:.4e}, "
+                  f"{coll['reduce-scatter']:.4e}, {coll['all-to-all']:.4e}) | "
                   f"{rl['bottleneck']} | {rl['mfu_at_roofline']:.4e} | "
                   f"{rec['memory_analysis']['temp_size_in_bytes'] / 1e9:.3f}"
                   f" | {rl['roofline_step_time_s']:.4e}")

@@ -18,11 +18,13 @@ and restored exactly.
   * GC — keep the newest ``keep`` checkpoints.
 
 On a device mesh (``launch.train --mesh elastic``) the state's leaves are
-DTensors: ``save`` writes their full arrays (each gathered by all-gathers
-over its sharding mesh dims' groups, so every rank calls it) from rank 0
-only, in the same layout, and ``restore(..., mesh=, shardings=)`` lays
-each leaf out onto the target mesh (``distribute_tensor``, every rank
-keeping its own slice), whatever mesh saved it — the elastic restart.
+DTensors (or ZeRO-1 blocks, ``sharding.BlockShard``): ``save`` writes
+their full arrays (each gathered by all-gathers over its sharding mesh
+dims' groups, a block broadcast from its owner, so every rank calls it)
+from rank 0 only, in the same layout, and ``restore(..., mesh=,
+shardings=)`` lays each leaf out onto the target mesh
+(``sharding.lay_out``, every rank keeping its own slice), whatever mesh
+saved it — the elastic restart.
 """
 from __future__ import annotations
 
@@ -37,10 +39,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import distribute_tensor
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.distributed.sharding import full
+from repro_torch.distributed.sharding import full, lay_out
 from repro_torch.tree import tree_map_with_path, tree_paths
 
 _SEP = "::"
@@ -55,7 +56,7 @@ def _to_host(leaf: torch.Tensor) -> np.ndarray:
     """A copy of ``leaf`` on the host (synchronous; a copy on the CPU too,
     so that a later in-place update cannot reach the writer), bfloat16 as
     its uint16 bit pattern."""
-    t = full(leaf.detach()).to("cpu", copy=True)
+    t = full(leaf).detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
     return t.numpy()
@@ -140,9 +141,10 @@ def restore(ckpt_dir, like, step: Optional[int] = None,
     placed on ``device`` (``cuda`` unless asked; raises without a GPU).
 
     ``shardings`` (with ``mesh``): a tree of the same structure whose
-    leaves are DTensor placement lists, or None for a leaf kept whole;
-    each such leaf is laid out onto ``mesh`` as a DTensor — the elastic
-    restart onto a mesh other than the one that saved."""
+    leaves are DTensor placement lists (or ZeRO-1 ``BlockPlacement``s,
+    ``launch.specs.to_placements``), or None for a leaf kept whole; each
+    such leaf is laid out onto ``mesh`` (``sharding.lay_out``) — the
+    elastic restart onto a mesh other than the one that saved."""
     if (mesh is None) != (shardings is None):
         raise ValueError("restore: pass mesh and shardings together")
     dev = resolve_device(device)
@@ -168,8 +170,7 @@ def restore(ckpt_dir, like, step: Optional[int] = None,
     if shardings is None:
         return state
     return tree_map_with_path(
-        lambda _, t, pl: t if pl is None else
-        distribute_tensor(t, mesh, pl, src_data_rank=None),
+        lambda _, t, pl: t if pl is None else lay_out(t, mesh, pl),
         state, shardings)
 
 

@@ -36,19 +36,43 @@ expert weights stay sharded (``unshard(params, keep=is_moe_expert)``).
 Parameters, AdamW's moments and the update are sharded as the rules say.
 :class:`MeshRules` installed by :func:`activation_rules` turn expert
 parallelism on; the launcher installs none, as the reference's does.
+The data axes are divided where the reference divides them: a batch laid
+out over them (:func:`batch_dims`) makes ``optim.make_train_step``
+data-parallel (each rank's rows, the gradient summed over the data
+groups, ZeRO-1 moments; ``MeshRules.local_batch`` tells the MoE path that
+its activations are already a rank's rows, :func:`local_batch`), and a
+decode cache laid out by ``launch.specs.cache_shardings`` cuts the KV
+sequence (``models.layers.attention_decode``).
 
 DTensors are the containers (placements, the local shard); every
 collective is an explicit ``torch.distributed`` call over a mesh dim's
-group (:func:`gather`, :func:`scatter`, :func:`sum_grad`), never DTensor's
-own redistribution, which fails over gloo on CUDA tensors where the
+group (:func:`gather`, :func:`scatter`, :func:`sum_grad`,
+:func:`gather_local`, :func:`reduce_scatter_dims`), never DTensor's own
+redistribution, which fails over gloo on CUDA tensors where the
 process-group calls work.
+
+ZeRO-1 on per-block leaves.  :func:`zero1_pspecs` folds the data axes
+onto the first free, divisible dim of the JAX leaf, its block axis
+included: at ``data = 2`` with 2 layers ``layers/attn/wq``'s moments go
+``("data", None, "model")``, data rank 0 owning block 0 and data rank 1
+block 1.  The port keeps one tensor a block, so such a leaf is held as
+per-block entries that a rank holds only for the blocks it owns
+(:class:`BlockShard`, laid out by a :class:`BlockPlacement`): an owned
+block is the whole block laid out over the other mesh dims as the spec's
+remaining entries say, every other block an empty tensor.  A rank's
+owned blocks stacked are the reference's ``NamedSharding.shard_shape``
+of the JAX leaf; a fold onto any other dim is a DTensor ``Shard`` of the
+per-block tensor.  The tree keeps the parameters' containers, so a
+ZeRO-1 state saves and restores through the same checkpoint layout as
+any other (``full`` gathers a block from its owner).
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,7 +81,8 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
 
-from repro_torch.tree import STACKED, jax_leaf, tree_map_with_path
+from repro_torch.tree import (STACKED, jax_leaf, tree_leaves,
+                              tree_map_with_path)
 
 Spec = Tuple  # entries: None, an axis name, or a tuple of axis names
 
@@ -68,6 +93,9 @@ class MeshRules:
     data_axes: Tuple[str, ...]  # ("data",) or ("pod", "data")
     model_axis: str = "model"
     seq_parallel: bool = True
+    #: the activations hold this rank's rows of a batch sharded over the
+    #: data axes (a data-parallel step), not the whole replicated batch
+    local_batch: bool = False
 
     @property
     def dp(self):
@@ -89,6 +117,16 @@ def activation_rules(rules: Optional[MeshRules]):
 
 def current_rules() -> Optional[MeshRules]:
     return _CURRENT
+
+
+@contextmanager
+def local_batch():
+    """While open, the installed rules (if any) say that the activations
+    hold this rank's rows of a batch cut over the data axes."""
+    rules = _CURRENT
+    with activation_rules(None if rules is None else
+                          dataclasses.replace(rules, local_batch=True)):
+        yield
 
 
 def axis_size(mesh: DeviceMesh, name: str) -> int:
@@ -258,14 +296,113 @@ def zero1_pspecs(params, tied: bool, axis_sizes, data_axes):
 # ---------------------------------------------------------------------------
 
 def distribute(tree, mesh: DeviceMesh, shardings):
-    """Every leaf of ``tree`` (the same full tensor on every rank) as a
-    DTensor with its placements from ``shardings`` (a tree of placement
-    tuples, ``param_shardings``'); each rank keeps its own slice, nothing
-    is sent."""
-    return tree_map_with_path(
-        lambda _, leaf, pl: distribute_tensor(leaf, mesh, pl,
-                                              src_data_rank=None),
-        tree, shardings)
+    """Every leaf of ``tree`` (the same full tensor on every rank) laid
+    out by its entry of ``shardings`` (a tree of placement tuples,
+    ``param_shardings``', or :class:`BlockPlacement`s): a DTensor, or a
+    :class:`BlockShard`; each rank keeps its own slice, nothing is sent.
+    A leaf that is not a tensor (a decode cache's ``len``) stays as it
+    is."""
+    return tree_map_with_path(lambda _, leaf, pl: lay_out(leaf, mesh, pl),
+                              tree, shardings)
+
+
+def lay_out(t, mesh: DeviceMesh, pl):
+    """The full tensor ``t`` (on every rank) laid out by ``pl``: this
+    rank's part, nothing sent."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    if isinstance(pl, BlockPlacement):
+        # a storage of its own, as distribute_tensor gives a shard
+        part = local_slice(t, mesh, pl.placements).clone()
+        if data_index(mesh, pl.data_dims) != pl.owner:
+            part = part.new_empty((0,) + tuple(part.shape[1:]))
+        return BlockShard(part, mesh, pl, t.shape)
+    return distribute_tensor(t, mesh, pl, src_data_rank=None)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 blocks: a block list's leaf whose data axes fold onto the block axis
+# ---------------------------------------------------------------------------
+
+class BlockPlacement(NamedTuple):
+    """The layout of one block of a JAX leaf whose spec puts the data axes
+    on its block axis: the data rank ``owner`` (the flat index over the
+    mesh dims ``data_dims``, the first major) holds the block, laid out
+    over the mesh by ``placements`` (``Replicate`` on ``data_dims``);
+    every other data rank holds an empty tensor."""
+    owner: int
+    data_dims: Tuple[int, ...]
+    placements: tuple
+
+
+def block_placement(mesh: DeviceMesh, spec: Spec, block: int,
+                    n_blocks: int) -> BlockPlacement:
+    """Block ``block`` of ``n_blocks`` under the JAX leaf's ``spec``, whose
+    first entry (the data axes) shards the block axis: contiguous runs of
+    ``n_blocks / parts`` blocks a data rank."""
+    axes = spec[0] if isinstance(spec[0], tuple) else (spec[0],)
+    dims = tuple(mesh.mesh_dim_names.index(a) for a in axes)
+    parts = 1
+    for i in dims:
+        parts *= mesh.size(i)
+    return BlockPlacement(block // (n_blocks // parts), dims,
+                          placements(tuple(spec[1:]), mesh))
+
+
+def data_index(mesh: DeviceMesh, dims) -> int:
+    """This rank's flat index over the mesh dims ``dims`` (the first
+    major), as JAX orders a tuple of axes."""
+    idx = 0
+    for i in dims:
+        idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+    return idx
+
+
+class BlockShard:
+    """One block of a ZeRO-1 leaf folded over the block axis
+    (:class:`BlockPlacement`): the DTensor-like holder of this rank's
+    part — the owned block's local shard, or an empty tensor (its first
+    dim 0) on every other data rank.  ``shape`` is the whole block's."""
+
+    def __init__(self, part: torch.Tensor, mesh: DeviceMesh,
+                 layout: BlockPlacement, shape):
+        self._local_tensor = part
+        self.device_mesh = mesh
+        self.layout = layout
+        self.shape = torch.Size(shape)
+
+    @property
+    def owned(self) -> bool:
+        return data_index(self.device_mesh, self.layout.data_dims) == \
+            self.layout.owner
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self._local_tensor.dtype
+
+    def to_local(self) -> torch.Tensor:
+        return self._local_tensor
+
+    def full(self) -> torch.Tensor:
+        """The whole block on every rank: the owner's part broadcast over
+        each data dim's group (the last first), then gathered over the
+        mesh dims that shard it."""
+        mesh, lay = self.device_mesh, self.layout
+        t = self._local_tensor
+        if not self.owned:
+            shape = local_slice(torch.empty(self.shape, device="meta"),
+                                mesh, lay.placements).shape
+            t = t.new_empty(shape)
+        owner, coords = lay.owner, []
+        for i in reversed(lay.data_dims):
+            owner, c = divmod(owner, mesh.size(i))
+            coords.append((i, c))
+        for i, c in coords:
+            if mesh.size(i) > 1:
+                group = mesh.get_group(i)
+                dist.broadcast(t, src=dist.get_global_rank(group, c),
+                               group=group)
+        return gather_local(t, mesh, lay.placements)
 
 
 def _sharded(mesh: DeviceMesh, pl) -> list:
@@ -370,9 +507,11 @@ def sum_grad(x: torch.Tensor, mesh: DeviceMesh, dims) -> torch.Tensor:
 def full(x):
     """The full tensor of a DTensor (explicit all-gathers over its
     sharding mesh dims' groups; differentiable, its backward the local
-    slice), a plain tensor as it is.  DTensor's own collectives are not
-    used: over gloo on CUDA tensors they fail, where the process-group
-    calls work."""
+    slice) or of a :class:`BlockShard` (not differentiable), a plain
+    tensor as it is.  DTensor's own collectives are not used: over gloo
+    on CUDA tensors they fail, where the process-group calls work."""
+    if isinstance(x, BlockShard):
+        return x.full()
     if not isinstance(x, DTensor):
         return x
     pl = tuple(x.placements)
@@ -392,8 +531,10 @@ def unshard(tree, keep: Optional[Callable] = None):
 
 
 def like(ref, local: torch.Tensor):
-    """``local`` as a DTensor laid out as ``ref`` (a plain ``ref``: as it
-    is)."""
+    """``local`` as a DTensor (or :class:`BlockShard`) laid out as ``ref``
+    (a plain ``ref``: as it is)."""
+    if isinstance(ref, BlockShard):
+        return BlockShard(local, ref.device_mesh, ref.layout, ref.shape)
     if not isinstance(ref, DTensor):
         return local
     return DTensor.from_local(local, ref.device_mesh, ref.placements,
@@ -402,7 +543,72 @@ def like(ref, local: torch.Tensor):
 
 
 def local(x) -> torch.Tensor:
-    return x.to_local() if isinstance(x, DTensor) else x
+    return x.to_local() if isinstance(x, (DTensor, BlockShard)) else x
+
+
+def slice_as(ref, t: torch.Tensor):
+    """The full tensor ``t`` laid out as ``ref`` (this rank's part; a
+    plain ``ref``: ``t`` as it is)."""
+    if isinstance(ref, BlockShard):
+        return lay_out(t, ref.device_mesh, ref.layout)
+    if isinstance(ref, DTensor):
+        return like(ref, local_slice(t, ref.device_mesh, ref.placements))
+    return t
+
+
+def sum_dims(x) -> Tuple[int, ...]:
+    """The mesh dims (of more than one rank) whose ranks hold different
+    parts of ``x``: a sum over its local part, summed over them, counts
+    every element once."""
+    if isinstance(x, BlockShard):
+        mesh = x.device_mesh
+        dims = {i for i in x.layout.data_dims if mesh.size(i) > 1}
+        dims |= {i for i, _ in _sharded(mesh, x.layout.placements)}
+        return tuple(sorted(dims))
+    if isinstance(x, DTensor):
+        return tuple(i for i, _ in _sharded(x.device_mesh, x.placements))
+    return ()
+
+
+def batch_dims(tree) -> Tuple[str, ...]:
+    """The names of the mesh dims over which a batch's DTensor leaves are
+    cut along their batch dim (``Shard(0)``; ``launch.specs.
+    batch_shardings``); empty for a plain or replicated batch."""
+    for x in tree_leaves(tree):
+        if isinstance(x, DTensor):
+            return tuple(n for n, p in zip(x.device_mesh.mesh_dim_names,
+                                           x.placements)
+                         if isinstance(p, Shard) and p.dim == 0)
+    return ()
+
+
+def reduce_scatter_dims(t: torch.Tensor, dim: int, mesh: DeviceMesh,
+                        dims) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of the mesh dims ``dims``
+    (indices), this rank's chunk of it along ``dim``: one
+    ``reduce_scatter_tensor`` over each dim's group, in mesh order, so
+    that the chunks fall as :func:`local_slice` cuts them (the first dim
+    major)."""
+    for i in dims:
+        n = mesh.size(i)
+        if n == 1:
+            continue
+        x = t.movedim(dim, 0).contiguous()
+        out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, group=mesh.get_group(i))
+        t = out.movedim(0, dim)
+    return t.contiguous()
+
+
+def all_reduce_dims(t: torch.Tensor, mesh: DeviceMesh, dims,
+                    op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` reduced in place over the ranks of the mesh dims ``dims``
+    (names or indices), one all-reduce a dim."""
+    for a in dims:
+        i = mesh.mesh_dim_names.index(a) if isinstance(a, str) else a
+        if mesh.size(i) > 1:
+            dist.all_reduce(t, op=op, group=mesh.get_group(i))
+    return t
 
 
 # ---------------------------------------------------------------------------

@@ -22,16 +22,22 @@ data axes); and the port's real step runs once under the cost trace
               kernels' meta paths;
   * decode  — the model's ``decode_step``.
 
-What the per-device step is, and where it departs from the reference's
-design (ROADMAP A8 item 6b): every rank gathers its parameters at the
-model's entry (all-gathers over ``model``, and over the data axes where a
-rule puts them) and computes every block replicated over ``model`` on
-its own share of the batch; AdamW's moments are laid out like the
-parameters (no ZeRO-1); no rule installs expert parallelism (the
-experts are gathered like the rest); the decode cache holds the rank's
-batch rows at the whole sequence; and the step's gradients are not
-reduced over the data axes (the port's launcher passes every rank the
-same batch).  The record names each of these under ``departures``.
+What the per-device step is: the reference's ``lower_cell`` with its
+``in_shardings`` as the inputs' layouts (``launch.specs.lay_out``) —
+the train state by ``state_shardings`` (ZeRO-1 moments), the batch by
+``batch_shardings``, the decode cache by ``cache_layout`` and the tokens
+by ``token_shardings`` — under ``activation_rules(make_rules(mesh,
+cfg))``, as ``src/repro/launch/dryrun.py:72-108`` installs them.  So a
+train cell runs a data-parallel step on its rank's rows (the gradient
+reduce-scattered over the data axes into the ZeRO-1 layout, the new
+parameters all-gathered back), a decode cell attends over its slice of
+the KV sequence (all-reduces of the softmax statistics and of the
+partial outputs), and a MoE cell's dispatch takes expert parallelism
+(all-to-alls over ``model``).  Where it still departs from the
+reference's design (ROADMAP A8 item 6b), the record says under
+``departures``: every rank gathers its parameters at the model's entry
+and computes every block replicated over ``model``, and the SSM decode
+state and conv cache stay replicated over ``model``.
 
 Each cell writes ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json``
 with the reference record's keys where their meaning carries
@@ -71,9 +77,13 @@ import torch
 
 from repro_torch.configs import cells, get_config, get_shape
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.distributed.sharding import (distribute, is_moe_expert,
+from repro_torch.distributed.sharding import (BlockShard,
+                                              activation_rules, batch_dims,
+                                              distribute, is_moe_expert,
+                                              like, local, local_batch,
                                               mesh_size, param_shardings,
                                               unshard)
+from repro_torch.launch import specs as S
 from repro_torch.launch.cost import CostTrace
 from repro_torch.launch.mesh import (data_axes, fake_world,
                                      make_production_mesh)
@@ -88,11 +98,13 @@ MESHES = {"single": 256, "multi": 512}
 #: the port's departures from the reference design that a record names
 DEPARTURES = {
     "replicated_blocks": "parameters gathered at entry, every block "
-                         "computed replicated over 'model' (A8 6b)",
-    "zero1": False,
-    "expert_parallel": False,
-    "kv_cache_sequence_sharded": False,
-    "dp_gradient_reduce": False,
+                         "computed replicated over 'model'; SSM decode "
+                         "state and conv cache replicated over 'model' "
+                         "(A8 6b, TP)",
+    "zero1": True,
+    "expert_parallel": True,
+    "kv_cache_sequence_sharded": True,
+    "dp_gradient_reduce": True,
 }
 
 
@@ -117,17 +129,16 @@ def device_batch(shape: ShapeConfig, dp: int) -> int:
 
 
 def _materialise(tree, dev: torch.device):
-    """Every meta leaf (a DTensor's local shard) as zeros on ``dev``."""
+    """Every meta leaf (a DTensor's or ZeRO-1 block's local part) as zeros
+    on ``dev``."""
     from torch.distributed.tensor import DTensor
 
     def leaf(x):
+        if isinstance(x, (DTensor, BlockShard)):
+            return like(x, torch.zeros(x.to_local().shape, dtype=x.dtype,
+                                       device=dev))
         if not isinstance(x, torch.Tensor):
             return x
-        if isinstance(x, DTensor):
-            return DTensor.from_local(
-                torch.zeros(x.to_local().shape, dtype=x.dtype, device=dev),
-                x.device_mesh, x.placements, run_check=False, shape=x.shape,
-                stride=x.stride())
         return torch.zeros(x.shape, dtype=x.dtype, device=dev)
     return tree_map(leaf, tree)
 
@@ -137,7 +148,7 @@ def _storages(tree) -> Dict[int, int]:
     outputs (a DTensor's local shard)."""
     out = {}
     for x in tree_leaves(_flat(tree)):
-        x = getattr(x, "_local_tensor", x)
+        x = local(x)
         if isinstance(x, torch.Tensor):
             st = x.untyped_storage()
             out[st._cdata] = st.nbytes()
@@ -158,33 +169,60 @@ def _flat(tree):
 
 def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh, dev: torch.device,
                batch: Optional[int] = None):
-    """(step function, its arguments) of one rank: the state or parameters
-    on ``mesh`` (None: one device, plain tensors) and the inputs at
-    ``batch`` rows (the shape's global batch when None), on ``dev``
-    (``meta``: shapes only)."""
+    """(step function, its arguments) of one rank on ``dev`` (``meta``:
+    shapes only).  On ``mesh`` the inputs are the shape's global ones laid
+    out as the reference's ``in_shardings`` say (``launch.specs``; this
+    rank keeps its part) and the step runs under the mesh's activation
+    rules; with None, one device with plain tensors at ``batch`` rows
+    (the shape's global batch when None)."""
     model = get_model(cfg)
     params = init_params(cfg, device="meta")
-    if mesh is not None:
-        params = distribute(params, mesh,
-                            param_shardings(mesh, params, cfg.tie_embeddings))
-    if dev.type != "meta":
-        params = _materialise(params, dev)
-    inputs = input_specs(cfg, shape, batch)
-    if dev.type != "meta":
-        inputs = _materialise(inputs, dev)
+    inputs = input_specs(cfg, shape, None if mesh is not None else batch)
     if shape.kind == "train":
         ocfg = OptConfig()
-        return make_train_step(model, ocfg), (
-            init_train_state(params, ocfg), inputs["batch"])
-    if shape.kind == "prefill":
-        def prefill_step(params, batch):
-            return model.prefill(unshard(params, keep=is_moe_expert), batch)
-        return prefill_step, (params, inputs["batch"])
+        step = make_train_step(model, ocfg)
+        args = [init_train_state(params, ocfg), inputs["batch"]]
+        if mesh is not None:
+            args = [S.lay_out(args[0], mesh,
+                              S.state_shardings(mesh, cfg, args[0])),
+                    S.lay_out(args[1], mesh,
+                              S.batch_shardings(mesh, cfg, args[1]))]
+    else:
+        if mesh is not None:
+            params = distribute(params, mesh, param_shardings(
+                mesh, params, cfg.tie_embeddings))
+        if shape.kind == "prefill":
+            def step(params, batch):
+                params = unshard(params, keep=is_moe_expert)
+                if not batch_dims(batch):
+                    return model.prefill(params, batch)
+                with local_batch():     # this rank's rows
+                    return model.prefill(params, {k: local(v) for k, v
+                                                  in batch.items()})
+            args = [params, inputs["batch"]]
+            if mesh is not None:
+                args[1] = S.lay_out(args[1], mesh, S.batch_shardings(
+                    mesh, cfg, args[1]))
+        else:
+            def step(params, cache, tokens):
+                return model.decode_step(unshard(params, keep=is_moe_expert),
+                                         cache, tokens)
+            args = [params, inputs["cache"], inputs["tokens"]]
+            if mesh is not None:
+                args[1] = S.lay_out(args[1], mesh, S.cache_layout(
+                    mesh, cfg, args[1], shape))
+                args[2] = S.lay_out(args[2], mesh,
+                                    S.token_shardings(mesh, shape))
+    if dev.type != "meta":
+        args = [_materialise(a, dev) for a in args]
+    if mesh is None:
+        return step, tuple(args)
+    rules = S.make_rules(mesh, cfg)
 
-    def serve_step(params, cache, tokens):
-        return model.decode_step(unshard(params, keep=is_moe_expert), cache,
-                                 tokens)
-    return serve_step, (params, inputs["cache"], inputs["tokens"])
+    def ruled(*a):
+        with activation_rules(rules):
+            return step(*a)
+    return ruled, tuple(args)
 
 
 def run_traced(step, args) -> Dict:

@@ -8,17 +8,20 @@ leaves: a per-block leaf of the port carries the spec of the stacked JAX
 leaf that holds it.  :func:`to_placements` turns a tree of them into
 DTensor placements for the port's own tensors.
 
-What the port's step does with them (``launch.dryrun``): parameters are
-laid out by the parameter specs; AdamW's moments are laid out like the
-parameters, not by the ZeRO-1 specs of :func:`state_shardings`, because
-``optim.apply_updates`` updates each leaf's local shard elementwise in
-its parameter's layout (and ZeRO-1 folds the data axes onto the block
-axis of many stacked leaves, which the port's per-block tensors cannot
-hold); the batch is cut along the data axes; the decode cache is cut
-along the batch only — its sequence stays whole on every rank, where
-the reference shards it over ``model`` — because the port's decode
-attends over a whole cache on each rank (replicated compute, ROADMAP A8
-item 6b).
+What the port's step does with them (``launch.dryrun``, and any caller
+that lays its inputs out by :func:`lay_out`, as ``jax.jit(in_shardings=
+...)`` does): the parameters follow the TP rules; AdamW's moments and
+error feedback take the ZeRO-1 specs of :func:`state_shardings` (a fold
+onto a block list's block axis held as per-block entries that only the
+owning data ranks hold, ``distributed.sharding.BlockShard``); a batch
+cut over the data axes makes the step data-parallel (``optim.
+make_train_step``: each rank's rows, the gradient summed over the data
+groups); the decode cache's KV sequence is cut as :func:`cache_shardings`
+says and the decode attention reduces its statistics and outputs over
+those groups (``models.layers.attention_decode``).  One departure stays:
+the blocks compute replicated over ``model`` (ROADMAP A8 6b), so
+:func:`cache_layout` keeps the SSM decode state and conv cache
+replicated over ``model`` where the reference shards their heads.
 """
 from __future__ import annotations
 
@@ -27,11 +30,12 @@ from typing import Any, Dict
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.distributed.sharding import (MeshRules, local_spec,
+from repro_torch.distributed.sharding import (MeshRules, block_placement,
+                                              distribute, local_spec,
                                               param_pspecs, placements,
                                               zero1_pspecs)
 from repro_torch.launch.mesh import data_axes
-from repro_torch.tree import tree_map_with_path
+from repro_torch.tree import STACKED, tree_map_with_path
 
 Spec = tuple
 
@@ -106,9 +110,42 @@ def make_rules(mesh: DeviceMesh, cfg: ModelConfig) -> MeshRules:
                      seq_parallel=cfg.seq_parallel)
 
 
+def cache_layout(mesh: DeviceMesh, cfg: ModelConfig, cache,
+                 shape: ShapeConfig) -> Dict:
+    """The specs the port lays a decode cache out by:
+    :func:`cache_shardings`' with ``"model"`` dropped from the SSM
+    ``state`` and ``conv`` entries, which the port keeps replicated over
+    ``model`` (their heads split only under the blocks' TP, ROADMAP A8
+    6b)."""
+    def drop(spec: Spec) -> Spec:
+        return tuple(None if a == "model" else a for a in spec)
+    return {name: drop(spec) if name in ("state", "conv") else spec
+            for name, spec in cache_shardings(mesh, cfg, cache,
+                                              shape).items()}
+
+
 def to_placements(mesh: DeviceMesh, specs) -> Any:
-    """The DTensor placements of a tree of specs over the port's leaves
-    (a per-block leaf drops its JAX leaf's block axis; raises where a
-    spec shards that axis)."""
-    return tree_map_with_path(
-        lambda path, spec: placements(local_spec(path, spec), mesh), specs)
+    """The layouts of a tree of specs over the port's leaves: DTensor
+    placements (a per-block leaf drops its JAX leaf's block axis), or a
+    :class:`~repro_torch.distributed.sharding.BlockPlacement` where a
+    ZeRO-1 spec folds the data axes onto that block axis.  A train
+    state's specs (``state_shardings``') are taken one sub-tree at a
+    time, each over the parameters' paths."""
+    if isinstance(specs, dict) and "params" in specs:
+        return {k: to_placements(mesh, v) for k, v in specs.items()}
+
+    def one(path, spec):
+        if path and path[0] in STACKED and spec and spec[0] is not None:
+            return block_placement(mesh, spec, path[1],
+                                   len(specs[path[0]]))
+        return placements(local_spec(path, spec), mesh)
+    return tree_map_with_path(one, specs)
+
+
+def lay_out(tree, mesh: DeviceMesh, specs):
+    """A host tree (a train state, a batch, a decode cache, the tokens:
+    the same full tensors on every rank) laid out by a tree of ``specs``
+    of the same structure: each rank keeps its slice, nothing is sent
+    (``distributed.sharding.distribute``); a leaf that is not a tensor
+    (``len``) stays as it is."""
+    return distribute(tree, mesh, to_placements(mesh, specs))

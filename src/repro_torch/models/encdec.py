@@ -143,12 +143,13 @@ class EncDecLM:
         params = unshard(params)
         return self._logits(params, self._body(params, batch))
 
-    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def loss(self, params, batch, count=None
+             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Mean next-token cross-entropy of the decoder's tokens given the
         ``frames`` -> (loss, {"loss", "tokens"})."""
         params = unshard(params)
         return lm_loss(self._body(params, batch), params["unembed"],
-                       params["final_norm"], batch, self.cfg.norm_eps)
+                       params["final_norm"], batch, self.cfg.norm_eps, count)
 
     # ---------------- serve ----------------
     def cache_spec(self, batch_size: int, max_len: int,
@@ -208,21 +209,26 @@ class EncDecLM:
         """tokens: [B] -> (logits [B, V], cache with ``len`` + 1).  The new
         token's self K/V are written into the cache in place
         (``ServeEngine.decode`` works on a copy); cross-attention reads the
-        whole of ``ck``/``cv``."""
+        whole of ``ck``/``cv``.  A cache laid out by ``launch.specs``
+        decodes as ``TransformerLM.decode_step`` does, cross attention
+        over this rank's slice of ``ck``/``cv`` with no length mask."""
         cfg = self.cfg
+        loc, tokens, seq, wrap = L.decode_inputs(cache, tokens)
         x = self._embed(params, tokens)[:, None]
         clen = int(cache["len"])
         b = x.shape[0]
         for i, lp in enumerate(params["dec_layers"]):
             hn = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-            x = x + L.attn_decode_forward(lp["attn"], hn, cfg, cache["k"][i],
-                                          cache["v"][i], clen)
+            x = x + L.attn_decode_forward(lp["attn"], hn, cfg, loc["k"][i],
+                                          loc["v"][i], clen, seq)
             hn2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
             q = (hn2 @ lp["cross"]["wq"].to(x.dtype)).reshape(
                 b, 1, cfg.n_heads, cfg.head_dim)
-            ck, cv = cache["ck"][i], cache["cv"][i]
+            ck, cv = loc["ck"][i], loc["cv"][i]
+            enc_len = ck.shape[1] * (seq.parts if seq is not None else 1)
             co = L.attention_decode(q, ck.to(x.dtype), cv.to(x.dtype),
-                                    ck.shape[1])
+                                    enc_len, seq)
             x = x + co.reshape(b, 1, -1) @ lp["cross"]["wo"].to(x.dtype)
             x = self._mlp(lp, x, "ln3")
-        return self._logits(params, x)[:, 0], {**cache, "len": clen + 1}
+        return wrap(self._logits(params, x)[:, 0]), {**cache,
+                                                     "len": clen + 1}

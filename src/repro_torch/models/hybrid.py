@@ -132,11 +132,12 @@ class Zamba2LM:
         params = unshard(params)
         return self._logits(params, self._body(params, batch))
 
-    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def loss(self, params, batch, count=None
+             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Mean next-token cross-entropy -> (loss, {"loss", "tokens"})."""
         params = unshard(params)
         return lm_loss(self._body(params, batch), params["unembed"],
-                       params["final_norm"], batch, self.cfg.norm_eps)
+                       params["final_norm"], batch, self.cfg.norm_eps, count)
 
     # ---------------- serve ----------------
     def cache_spec(self, batch_size: int, max_len: int) -> Dict[str, Any]:
@@ -195,8 +196,11 @@ class Zamba2LM:
                                                           Params]:
         """tokens: [B] -> (logits [B, V], cache with ``len`` + 1).  The
         cache's buffers are updated in place (``ServeEngine.decode`` works
-        on a copy)."""
+        on a copy).  A cache laid out by ``launch.specs`` decodes each
+        rank's rows, the shared attention against its slice of the KV
+        sequence (``layers.decode_inputs``)."""
         cfg = self.cfg
+        loc, tokens, seq, wrap = L.decode_inputs(cache, tokens)
         x = self._embed(params, tokens)[:, None]
         clen = int(cache["len"])
         app = 0
@@ -205,15 +209,16 @@ class Zamba2LM:
                 lp = params["layers"][i]
                 y, st, conv = ssm.mamba_step(
                     lp["m"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg,
-                    cache["state"][i], cache["conv"][i])
+                    loc["state"][i], loc["conv"][i])
                 x = x + y
-                cache["state"][i] = st
-                cache["conv"][i] = conv
+                loc["state"][i] = st
+                loc["conv"][i] = conv
             if sp is not None:
                 hn = L.rms_norm(x, sp["ln1"], cfg.norm_eps)
                 x = x + L.attn_decode_forward(sp["attn"], hn, cfg,
-                                              cache["k"][app],
-                                              cache["v"][app], clen)
+                                              loc["k"][app], loc["v"][app],
+                                              clen, seq)
                 x = self._mlp(sp, x)
                 app += 1
-        return self._logits(params, x)[:, 0], {**cache, "len": clen + 1}
+        return wrap(self._logits(params, x)[:, 0]), {**cache,
+                                                     "len": clen + 1}

@@ -10,7 +10,12 @@ float32, probabilities rounded to the value type before the PV product.
 Attention here is plain torch: ``attention_naive`` / ``attention_chunked``
 (the forward pass) and ``attention_decode`` (one query against the KV
 cache).  The prefills go through the flash-attention kernel instead
-(``flash_attn``, which every model's prefill calls).
+(``flash_attn``, which every model's prefill calls).  A decode cache laid
+out by ``launch.specs`` (``decode_inputs``) holds a slice of the KV
+sequence a rank (``SeqShard``): ``attention_decode`` then reduces the
+softmax's statistics and the partial outputs over the ranks that share
+the sequence, as XLA partitions the reference's masked softmax, and only
+the rank whose slice holds the new position writes it.
 
 MoE (``init_moe``, ``moe_forward``): a float32 router over the padded
 expert count (padded experts masked out), top-k by a stable descending
@@ -41,6 +46,7 @@ an expert weight reaching the pure path is gathered in ``_experts``.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Dict, Optional
 
 import numpy as np
@@ -183,18 +189,65 @@ def attention_chunked(q, k, v, *, causal: bool, chunk: int,
     return torch.cat(outs, dim=1)
 
 
-def attention_decode(q, k_cache, v_cache, cache_len: int):
+@dataclass(frozen=True)
+class SeqShard:
+    """A decode cache's sequence cut into ``parts`` equal contiguous
+    slices over mesh dims (``launch.specs.cache_shardings``): this rank
+    holds slice ``index``; the attention reduces over ``groups``, the
+    process groups of those dims."""
+    index: int
+    parts: int
+    groups: tuple
+
+    def start(self, local_len: int) -> int:
+        return self.index * local_len
+
+
+def local_position(pos: int, local_len: int, seq: Optional[SeqShard]):
+    """The index in this rank's cache slice of sequence position ``pos``;
+    None when another rank's slice holds it."""
+    if seq is None:
+        return pos
+    i = pos - seq.start(local_len)
+    return i if 0 <= i < local_len else None
+
+
+def attention_decode(q, k_cache, v_cache, cache_len: int,
+                     seq: Optional[SeqShard] = None):
     """Single-step decode.  q: [B,1,Hq,D]; caches: [B,Smax,Hkv,D]; the
-    first ``cache_len`` cache positions are attended."""
+    first ``cache_len`` cache positions are attended.  With ``seq`` the
+    caches are this rank's slice of the sequence, and the softmax runs
+    as XLA partitions it: local scores masked by their global positions,
+    a MAX all-reduce of the row maxima (exact), the local ``exp`` and a
+    SUM all-reduce of its float32 sums, ``p`` cast to ``v``'s type and the
+    local P.V, whose float32 partial outputs are summed over ``seq.groups``
+    (only the order of the sums differs from one device's)."""
     b, _, hq, dh = q.shape
     hkv = k_cache.shape[2]
     g = hq // hkv
     qg = q.reshape(b, 1, hkv, g, dh) * (dh ** -0.5)
     s = _gqa_scores(qg, k_cache)                       # [B,Hkv,G,1,Smax]
-    valid = torch.arange(k_cache.shape[1], device=q.device) < cache_len
+    start = 0 if seq is None else seq.start(k_cache.shape[1])
+    valid = torch.arange(start, start + k_cache.shape[1],
+                         device=q.device) < cache_len
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    return _gqa_out(p, v_cache).reshape(b, 1, hq, dh)
+    if seq is None:
+        p = torch.softmax(s, dim=-1)
+        return _gqa_out(p, v_cache).reshape(b, 1, hq, dh)
+    # a slice wholly past cache_len has maxima NEG_INF, which is finite:
+    # its exp against the global maximum is 0, never exp(-inf + inf)
+    mx = s.amax(dim=-1, keepdim=True)
+    for grp in seq.groups:
+        dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=grp)
+    e = torch.exp(s - mx)
+    z = e.sum(dim=-1, keepdim=True)
+    for grp in seq.groups:
+        dist.all_reduce(z, group=grp)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", (e / z).to(v_cache.dtype).to(F32),
+                     v_cache.to(F32))
+    for grp in seq.groups:
+        dist.all_reduce(o, group=grp)
+    return o.to(v_cache.dtype).reshape(b, 1, hq, dh)
 
 
 def qkv_proj(p: Params, x, cfg: ModelConfig, positions):
@@ -271,18 +324,54 @@ def zero_cache(spec, device) -> Dict:
 
 
 def attn_decode_forward(p: Params, x, cfg: ModelConfig, cache_k, cache_v,
-                        cache_len: int):
+                        cache_len: int, seq: Optional[SeqShard] = None):
     """One-token attention with a KV cache update.  x: [B,1,d]; the caches
     [B,Smax,Hkv,D] get the new token's k, v written at ``cache_len`` in
-    place.  Returns out [B,1,d]."""
+    place (with ``seq``: the caches are this rank's sequence slice, and
+    only the rank whose slice holds ``cache_len`` writes).  Returns out
+    [B,1,d]."""
     b = x.shape[0]
     pos = torch.full((b, 1), cache_len, dtype=torch.int64, device=x.device)
     q, k, v = qkv_proj(p, x, cfg, pos)
-    cache_k[:, cache_len] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, cache_len] = v[:, 0].to(cache_v.dtype)
+    at = local_position(cache_len, cache_k.shape[1], seq)
+    if at is not None:
+        cache_k[:, at] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, at] = v[:, 0].to(cache_v.dtype)
     o = attention_decode(q, cache_k.to(x.dtype), cache_v.to(x.dtype),
-                         cache_len + 1)
+                         cache_len + 1, seq)
     return o.reshape(b, 1, -1) @ p["wo"].to(x.dtype)
+
+
+def decode_inputs(cache, tokens):
+    """A decode step's inputs as this rank computes on them: (the cache's
+    local tensors, the local tokens, the KV sequence's :class:`SeqShard`
+    or None, and a function laying the logits out as the tokens).  Inputs
+    laid out by ``launch.specs`` (DTensors: the batch over the data axes,
+    the KV sequence as ``cache_shardings`` cuts it) give this rank's part;
+    plain inputs pass as they are."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    seq = None
+    kv = next((cache[n] for n in ("k", "ck") if n in cache), None)
+    if isinstance(kv, DTensor):
+        mesh = kv.device_mesh
+        dims = [i for i, pl in enumerate(kv.placements)
+                if isinstance(pl, Shard) and pl.dim == 2]
+        parts = math.prod(mesh.size(i) for i in dims)
+        if parts > 1:
+            seq = SeqShard(shd.data_index(mesh, dims), parts,
+                           tuple(mesh.get_group(i) for i in dims
+                                 if mesh.size(i) > 1))
+    local = {k: shd.local(v) for k, v in cache.items()}
+
+    def wrap(logits):
+        if not isinstance(tokens, DTensor):
+            return logits
+        shape = (tokens.shape[0], logits.shape[1])
+        return DTensor.from_local(logits, tokens.device_mesh,
+                                  tokens.placements, run_check=False,
+                                  shape=shape, stride=(shape[1], 1))
+    return local, shd.local(tokens), seq, wrap
 
 
 # ---------------------------------------------------------------------------
@@ -450,7 +539,8 @@ def _moe_shardmap(p: Params, x, topi, topw, cfg: ModelConfig, rules):
     e, k = cfg.n_experts_padded, cfg.topk
     mesh, maxis = rules.mesh, rules.model_axis
     m = shd.axis_size(mesh, maxis)
-    dp_size = shd.mesh_size(mesh, rules.dp)
+    # a data-parallel step's activations are already this rank's rows
+    dp_size = 1 if rules.local_batch else shd.mesh_size(mesh, rules.dp)
     experts = [p[n] for n in ("wg", "wi", "wo")]
     ep = shd.placements((maxis, None, None), mesh)
     if b % dp_size or s % m or e % m or not all(
@@ -461,7 +551,8 @@ def _moe_shardmap(p: Params, x, topi, topw, cfg: ModelConfig, rules):
     cap = max(4, int(math.ceil(t_loc * k / e * cfg.capacity_factor)))
     e_loc = e // m
     cdt = x.dtype
-    blk = shd.placements((rules.dp, maxis, None), mesh)
+    blk = shd.placements((None if rules.local_batch else rules.dp, maxis,
+                          None), mesh)
     # this rank's block of tokens (batch over the data axes, sequence over
     # the model axis), cut from the replicated activations
     xl, twl = shd.scatter(x, mesh, blk), shd.scatter(topw, mesh, blk)
@@ -469,8 +560,10 @@ def _moe_shardmap(p: Params, x, topi, topw, cfg: ModelConfig, rules):
     bl, sl = xl.shape[:2]
     # the local experts; the data ranks ran them on other tokens, so their
     # gradient sums over the data axes (shard_map's transpose of an input
-    # that is replicated over them)
-    wg, wi, wo = (shd.sum_grad(w.to_local(), mesh, rules.data_axes).to(cdt)
+    # that is replicated over them) — in a data-parallel step the
+    # optimizer sums every gradient over them instead
+    wg, wi, wo = (w.to_local().to(cdt) if rules.local_batch else
+                  shd.sum_grad(w.to_local(), mesh, rules.data_axes).to(cdt)
                   for w in experts)
     group = mesh.get_group(maxis)
 

@@ -85,11 +85,12 @@ class Mamba2LM:
         params = unshard(params)
         return self._logits(params, self._body(params, batch))
 
-    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def loss(self, params, batch, count=None
+             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Mean next-token cross-entropy -> (loss, {"loss", "tokens"})."""
         params = unshard(params)
         return lm_loss(self._body(params, batch), self._unembed(params),
-                       params["final_norm"], batch, self.cfg.norm_eps)
+                       params["final_norm"], batch, self.cfg.norm_eps, count)
 
     # ---------------- serve ----------------
     def cache_spec(self, batch_size: int, max_len: int = 0
@@ -133,14 +134,17 @@ class Mamba2LM:
     def decode_step(self, params, cache, tokens) -> Tuple[torch.Tensor,
                                                           Params]:
         """tokens: [B] -> (logits [B, V], cache).  The cache's buffers are
-        updated in place (``ServeEngine.decode`` works on a copy)."""
+        updated in place (``ServeEngine.decode`` works on a copy).  A cache
+        and tokens laid out by ``launch.specs`` decode each rank's rows
+        (``layers.decode_inputs``)."""
         cfg = self.cfg
+        loc, tokens, _, wrap = L.decode_inputs(cache, tokens)
         x = self._embed(params, tokens)[:, None]
         for i, lp in enumerate(params["layers"]):
             y, st, conv = ssm.mamba_step(
                 lp["m"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg,
-                cache["state"][i], cache["conv"][i])
+                loc["state"][i], loc["conv"][i])
             x = x + y
-            cache["state"][i] = st
-            cache["conv"][i] = conv
-        return self._logits(params, x)[:, 0], cache
+            loc["state"][i] = st
+            loc["conv"][i] = conv
+        return wrap(self._logits(params, x)[:, 0]), cache

@@ -37,7 +37,11 @@ local slice) and run the blocks on plain tensors; the MoE expert weights
 stay sharded for expert parallelism (``layers._moe_shardmap``) and are
 gathered in ``layers._experts`` when the pure path runs.  Activations
 stay replicated, so the reference's ``shard_activation`` calls between
-blocks have nothing to lay out and are left out.
+blocks have nothing to lay out and are left out.  A batch laid out over
+the data axes gives each rank its rows (``optim.loss_and_grads`` passes
+the global token ``count`` to ``loss``), and a decode cache laid out by
+``launch.specs`` attends over the rank's slice of the KV sequence
+(``layers.decode_inputs``).
 """
 from __future__ import annotations
 
@@ -80,14 +84,17 @@ def _remat(fn, cfg: ModelConfig):
 
 
 def chunked_ce_loss(x, unembed, labels, mask, *, chunk: int = 512,
-                    norm_w=None, eps: float = 1e-5):
+                    norm_w=None, eps: float = 1e-5, count=None):
     """Memory-bounded cross-entropy over sequence chunks (``chunk`` at most
     S, halved until it divides S), each chunk checkpointed so that no more
     than one chunk's [B, chunk, V] logits live at once.
 
     x: [B,S,d] (before the final norm, applied per chunk with ``norm_w``);
     unembed: [d,V]; labels/mask: [B,S].  Logits in float32, logsumexp
-    minus the gold logit, times the mask.  Returns (mean loss, tokens)."""
+    minus the gold logit, times the mask.  Returns (mean loss, tokens):
+    the masked sum over the mask's count, or over ``count`` when given
+    (a data-parallel step's global token count; ``tokens`` stays this
+    batch's)."""
     s = x.shape[1]
     chunk = min(chunk, s)
     while s % chunk:
@@ -106,18 +113,19 @@ def chunked_ce_loss(x, unembed, labels, mask, *, chunk: int = 512,
         nll, n = checkpoint(body, x[:, i:i + chunk], labels[:, i:i + chunk],
                             mask[:, i:i + chunk], use_reentrant=False)
         tot, cnt = tot + nll, cnt + n
-    return tot / torch.clamp(cnt, min=1.0), cnt
+    return tot / torch.clamp(cnt if count is None else count, min=1.0), cnt
 
 
-def lm_loss(x, unembed, final_norm, batch, eps: float):
+def lm_loss(x, unembed, final_norm, batch, eps: float, count=None):
     """The families' shared loss tail: ``chunked_ce_loss`` of the body's
     output ``x`` against ``batch["labels"]`` (``batch["mask"]``, else all
-    ones) -> (loss, {"loss", "tokens"})."""
+    ones; over ``count`` tokens when given) -> (loss, {"loss",
+    "tokens"})."""
     labels, mask = batch["labels"], batch.get("mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=F32, device=x.device)
     loss, cnt = chunked_ce_loss(x, unembed, labels, mask, norm_w=final_norm,
-                                eps=eps)
+                                eps=eps, count=count)
     return loss, {"loss": loss, "tokens": cnt}
 
 
@@ -209,16 +217,18 @@ class TransformerLM:
                             self._body(params, self._embed_inputs(params,
                                                                   batch)))
 
-    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    def loss(self, params, batch, count=None
+             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Mean next-token cross-entropy of ``batch`` (tokens, labels[,
         mask][, patch_embeds]) -> (loss, {"loss", "tokens"}); for ``vlm``
-        over the text positions only."""
+        over the text positions only; the masked sum over ``count`` tokens
+        when given (``chunked_ce_loss``)."""
         params = unshard(params, keep=is_moe_expert)
         x = self._body(params, self._embed_inputs(params, batch))
         if self.cfg.family == "vlm":
             x = x[:, -batch["labels"].shape[1]:]
         return lm_loss(x, self._unembed(params), params["final_norm"], batch,
-                       self.cfg.norm_eps)
+                       self.cfg.norm_eps, count)
 
     # ---------------- serve ----------------
     @torch.no_grad()
@@ -272,36 +282,45 @@ class TransformerLM:
         """tokens: [B] -> (logits [B, V], cache with ``len`` + 1).  The new
         token's K/V are written into the cache's buffers in place (the JAX
         package returns new arrays; ``ServeEngine.decode`` works on a copy
-        so that a caller's cache is left as it was)."""
+        so that a caller's cache is left as it was).  A cache and tokens
+        laid out by ``launch.specs`` (DTensors) decode each rank's rows
+        against its slice of the KV sequence (``layers.decode_inputs``);
+        the logits then come back laid out as the tokens."""
         cfg = self.cfg
+        loc, tokens, seq, wrap = L.decode_inputs(cache, tokens)
         x = self._embed(params, tokens)[:, None]                  # [B,1,d]
         clen = int(cache["len"])
         for i, lp in enumerate(params["layers"]):
             hn = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
             if cfg.kv_quant:
-                a = _attn_decode_q(lp["attn"], hn, cfg, cache, i, clen)
+                a = _attn_decode_q(lp["attn"], hn, cfg, loc, i, clen, seq)
             else:
-                a = L.attn_decode_forward(lp["attn"], hn, cfg, cache["k"][i],
-                                          cache["v"][i], clen)
+                a = L.attn_decode_forward(lp["attn"], hn, cfg, loc["k"][i],
+                                          loc["v"][i], clen, seq)
             x = x + a
             x = x + self._ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps))
         logits = self._logits(params, x)[:, 0]
-        return logits, {**cache, "len": clen + 1}
+        return wrap(logits), {**cache, "len": clen + 1}
 
 
-def _attn_decode_q(p, x, cfg: ModelConfig, cache, i: int, clen: int):
+def _attn_decode_q(p, x, cfg: ModelConfig, cache, i: int, clen: int,
+                   seq=None):
     """int8-KV decode attention of layer ``i``: the new token's K/V are
-    quantised before the write, the layer's cache dequantised to read."""
+    quantised before the write (by the rank whose sequence slice holds
+    ``clen``, with ``seq``), the layer's cache — this rank's slice —
+    dequantised to read."""
     b = x.shape[0]
     pos = torch.full((b, 1), clen, dtype=torch.int64, device=x.device)
     q, k, v = L.qkv_proj(p, x, cfg, pos)
-    for name, new in (("k", k), ("v", v)):
-        qv, sc = _kv_quantize(new)
-        cache[name][i][:, clen] = qv[:, 0]
-        cache[name + "_s"][i][:, clen] = sc[:, 0]
+    at = L.local_position(clen, cache["k"].shape[2], seq)
+    if at is not None:
+        for name, new in (("k", k), ("v", v)):
+            qv, sc = _kv_quantize(new)
+            cache[name][i][:, at] = qv[:, 0]
+            cache[name + "_s"][i][:, at] = sc[:, 0]
     k_full = _kv_dequantize(cache["k"][i], cache["k_s"][i], x.dtype)
     v_full = _kv_dequantize(cache["v"][i], cache["v_s"][i], x.dtype)
-    o = L.attention_decode(q, k_full, v_full, clen + 1)
+    o = L.attention_decode(q, k_full, v_full, clen + 1, seq)
     return o.reshape(b, 1, -1) @ p["wo"].to(x.dtype)
 
 

@@ -34,22 +34,53 @@ all-reduce of the sharded leaves' sums over their mesh dims' groups,
 then the leaves' sums added in tree order — on a world of one rank the
 single-device sums, bit for bit.  Compression (``int8_ef``) quantises
 the full gradients, as the reference's blocks span whole leaves.
+
+The data axes (the reference's ``jax.jit(step, in_shardings=(state_sh,
+batch_sh))`` with ``launch.specs.state_shardings``/``batch_shardings``).
+When the batch's leaves are DTensors cut along the batch over the data
+axes (``sharding.batch_dims``; ``launch.specs.lay_out``), the step is
+data-parallel:
+
+  * each rank runs the model on its own rows, and the loss is the global
+    masked mean: the token count is all-reduced over the data groups
+    first, and each rank takes the gradient of its masked sum over that
+    count (a mean of the ranks' means would weigh unequal masks wrongly);
+    ``metrics["loss"]`` and ``metrics["tokens"]`` are the global values;
+  * the gradient is summed over the data groups in float32, by explicit
+    process-group calls: a reduce-scatter into the layout of ``m`` where
+    the state is ZeRO-1 (its moments fold the data axes onto a dim; a fold
+    onto a block list's block axis reduce-scatters the blocks stacked),
+    an all-reduce where ``m`` is replicated over the data axes;
+  * ``int8_ef`` then compresses the *reduced* gradient with error
+    feedback, over the whole JAX leaf's blocks (gathered, as above), and
+    lays the result and the new ``ef`` out as ``ef``;
+  * ``global_norm`` sums each leaf's local squares over every mesh dim
+    whose ranks hold different parts of it (a ZeRO-1 slice over the data
+    dims too; a part replicated over them is counted once);
+  * AdamW updates each rank's ZeRO-1 slice of the parameters, and the new
+    slices are all-gathered over the data groups back to the parameters'
+    layout.
+
+A ZeRO-1 state with a replicated batch skips the reduction and updates
+its slices the same way.  A replicated batch with moments in the
+parameters' layout takes the path above unchanged.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.device import DeviceLike, tensor_device
 from repro_torch.distributed import compression as comp
 from repro_torch.distributed import sharding as shd
-from repro_torch.tree import (STACKED, tree_leaves, tree_map, tree_paths,
-                              tree_unflatten)
+from repro_torch.tree import (STACKED, jax_leaf, tree_leaves, tree_map,
+                              tree_paths, tree_unflatten)
 
 F32 = torch.float32
 TrainState = Dict[str, Any]
@@ -90,17 +121,16 @@ def _sumsq(leaf) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """The norm of every leaf's full tensor (a plain tensor; DTensor
-    leaves' local sums are summed over their sharding mesh dims)."""
+    """The norm of every leaf's full tensor (a plain tensor; a DTensor's
+    or ZeRO-1 block's local sums are summed over the mesh dims whose ranks
+    hold different parts of it, ``sharding.sum_dims``)."""
     leaves = tree_leaves(tree)
     sums = [_sumsq(leaf) for leaf in leaves]
     groups: Dict[tuple, list] = {}
     for i, leaf in enumerate(leaves):
-        if isinstance(leaf, DTensor):
-            mesh = leaf.device_mesh
-            dims = tuple(j for j, _ in shd._sharded(mesh, leaf.placements))
-            if dims:
-                groups.setdefault((id(mesh), dims), []).append(i)
+        dims = shd.sum_dims(leaf)
+        if dims:
+            groups.setdefault((id(leaf.device_mesh), dims), []).append(i)
     for (_, dims), idx in groups.items():
         mesh = leaves[idx[0]].device_mesh
         part = torch.stack([sums[i] for i in idx])
@@ -162,60 +192,180 @@ def _adamw_leaf(p, g, m, v, lr, cfg: OptConfig, t, decay: bool):
 def loss_and_grads(model, params, batch):
     """((loss, metrics), grads) of ``model.loss(params, batch)``, grads
     in the tree of ``params`` (zeros for a leaf the loss does not use, as
-    JAX gives); everything returned is detached."""
+    JAX gives); everything returned is detached.  A batch cut over the
+    data axes (``sharding.batch_dims``) gives each rank's share of the
+    gradient of the global masked mean, not yet summed over the data
+    groups (``apply_updates`` sums it), and the global loss and token
+    count."""
+    dims = shd.batch_dims(batch)
+    count, ctx = None, contextlib.nullcontext()
+    if dims:
+        ctx = shd.local_batch()
+        mesh = next(x.device_mesh for x in tree_leaves(batch)
+                    if isinstance(x, DTensor))
+        batch = {k: shd.local(v) for k, v in batch.items()}
+        mask = batch.get("mask")
+        count = (mask.to(F32).sum() if mask is not None else
+                 torch.full((), batch["labels"].numel(), dtype=F32,
+                            device=batch["labels"].device))
+        shd.all_reduce_dims(count, mesh, dims)
     leaves = [leaf.detach().requires_grad_(True)
               for leaf in tree_leaves(params)]
-    with torch.enable_grad():
-        loss, metrics = model.loss(tree_unflatten(params, leaves), batch)
+    with torch.enable_grad(), ctx:
+        tree = tree_unflatten(params, leaves)
+        loss, metrics = (model.loss(tree, batch) if count is None else
+                         model.loss(tree, batch, count=count))
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [shd.like(p, torch.zeros_like(shd.local(p))) if g is None else g
              for p, g in zip(leaves, grads)]
     metrics = {k: v.detach() for k, v in metrics.items()}
-    return (loss.detach(), metrics), tree_unflatten(params, grads)
+    loss = loss.detach()
+    if count is not None:
+        loss = shd.all_reduce_dims(loss.clone(), mesh, dims)
+        metrics.update(loss=loss, tokens=count)
+    return (loss, metrics), tree_unflatten(params, grads)
+
+
+def _fold(p, m) -> Optional[Tuple[int, Tuple[int, ...]]]:
+    """(tensor dim, mesh dims) of the data axes that ``m``'s ZeRO-1 layout
+    folds onto a dim of the per-block tensor where its parameter ``p`` is
+    replicated; None when ``m`` is laid out like ``p`` over them (a block
+    fold, :class:`~repro_torch.distributed.sharding.BlockShard`, is
+    handled by the caller)."""
+    if not (isinstance(p, DTensor) and isinstance(m, DTensor)):
+        return None
+    mesh = m.device_mesh
+    dims = tuple(i for i, (a, b) in enumerate(zip(p.placements,
+                                                  m.placements))
+                 if a != b and mesh.size(i) > 1)
+    return (m.placements[dims[0]].dim, dims) if dims else None
+
+
+def _fold_pl(mesh, dim: int, dims) -> tuple:
+    return tuple(Shard(dim) if i in dims else Replicate()
+                 for i in range(mesh.ndim))
+
+
+def _to_zero(paths, params, grads, moments, data_dims):
+    """Each leaf's gradient in its moment's layout, as float32 local
+    parts: summed over the data dims ``data_dims`` (names; a data-
+    parallel step) — reduce-scattered onto a ZeRO-1 fold, all-reduced
+    where the moment is replicated over them — or, without
+    ``data_dims``, sliced to the fold."""
+    out = [None] * len(paths)
+    blocks: Dict[tuple, List[int]] = {}
+    for i, (path, p, g, m) in enumerate(zip(paths, params, grads, moments)):
+        if isinstance(m, shd.BlockShard):
+            blocks.setdefault(jax_leaf(path), []).append(i)
+            continue
+        t = shd.local(g).to(F32)
+        fold = _fold(p, m)
+        if fold is None:
+            out[i] = (shd.all_reduce_dims(t.clone(), p.device_mesh,
+                                          data_dims)
+                      if data_dims else t)
+        elif data_dims:
+            out[i] = shd.reduce_scatter_dims(t, fold[0], m.device_mesh,
+                                             fold[1])
+        else:
+            out[i] = shd.local_slice(t, m.device_mesh,
+                                     _fold_pl(m.device_mesh, *fold))
+    for idx in blocks.values():
+        m0 = moments[idx[0]]
+        mesh, dims = m0.device_mesh, m0.layout.data_dims
+        if data_dims:
+            mine = shd.reduce_scatter_dims(
+                torch.stack([shd.local(grads[i]).to(F32) for i in idx]), 0,
+                mesh, dims)
+        else:
+            mine = [shd.local(grads[i]).to(F32) for i in idx
+                    if moments[i].owned]
+        owned = iter(mine)
+        for i in idx:       # an empty part where another rank owns it
+            out[i] = next(owned) if moments[i].owned else \
+                shd.local(moments[i])
+    return out
+
+
+def _zero_slice(p, m) -> torch.Tensor:
+    """This rank's part of parameter ``p`` in its moment ``m``'s layout."""
+    t = shd.local(p)
+    if isinstance(m, shd.BlockShard):
+        return t if m.owned else t[:0]
+    fold = _fold(p, m)
+    if fold is None:
+        return t
+    return shd.local_slice(t, m.device_mesh, _fold_pl(m.device_mesh, *fold))
+
+
+def _from_zero(paths, params, moments, parts) -> list:
+    """The new parameters in their own layout from each rank's updated
+    ZeRO-1 parts: all-gathered over the data dims of each fold (a block
+    fold's owned blocks stacked)."""
+    out = [None] * len(paths)
+    blocks: Dict[tuple, List[int]] = {}
+    for i, (path, p, m, t) in enumerate(zip(paths, params, moments, parts)):
+        if isinstance(m, shd.BlockShard):
+            blocks.setdefault(jax_leaf(path), []).append(i)
+            continue
+        fold = _fold(p, m)
+        if fold is not None:
+            t = shd.gather_local(t, m.device_mesh,
+                                 _fold_pl(m.device_mesh, *fold))
+        out[i] = shd.like(p, t)
+    for idx in blocks.values():
+        m0 = moments[idx[0]]
+        mine = [parts[i] for i in idx if moments[i].owned]
+        every = shd.gather_local(torch.stack(mine), m0.device_mesh, _fold_pl(
+            m0.device_mesh, 0, m0.layout.data_dims))
+        for j, i in enumerate(idx):
+            out[i] = shd.like(params[i], every[j])
+    return out
 
 
 @torch.no_grad()
-def apply_updates(state: TrainState, grads, cfg: OptConfig
+def apply_updates(state: TrainState, grads, cfg: OptConfig,
+                  data_dims: Sequence[str] = ()
                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimizer step of ``state`` with ``grads``: (new state,
-    {"grad_norm", "lr"})."""
+    {"grad_norm", "lr"}).  ``data_dims``: the mesh dims (names) a
+    data-parallel batch was cut over — ``grads`` are this rank's share,
+    summed over them here."""
+    paths = [path for path, _ in tree_paths(state["params"])]
+    params = tree_leaves(state["params"])
+    moments = tree_leaves(state["m"])
+    gl = tree_leaves(grads)
+    parts = _to_zero(paths, params, gl, moments, tuple(data_dims))
+    grads = tree_unflatten(state["m"], [
+        shd.like(m, t.to(g.dtype)) for m, g, t in zip(moments, gl, parts)])
     new_ef = None
     if cfg.compression == "int8_ef":
         full, ef = shd.unshard(grads), shd.unshard(state["ef"])
         full, ef = comp.compress_with_error_feedback(full, ef)
-        grads = tree_map(_relayout, grads, full)
-        new_ef = tree_map(_relayout, state["ef"], ef)
+        grads = tree_map(shd.slice_as, grads, full)
+        new_ef = tree_map(shd.slice_as, state["ef"], ef)
     grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-    t = (state["step"] + 1).to(F32)
-    lr = lr_at(cfg, state["step"] + 1)
-    out = [_adamw_leaf(shd.local(p), shd.local(g), shd.local(m),
+    step = shd.local(state["step"])
+    t = (step + 1).to(F32)
+    lr = lr_at(cfg, step + 1)
+    out = [_adamw_leaf(_zero_slice(p, m), shd.local(g), shd.local(m),
                        shd.local(v), lr, cfg, t, decays(path, p))
-           for (path, p), g, m, v in zip(tree_paths(state["params"]),
-                                         tree_leaves(grads),
-                                         tree_leaves(state["m"]),
-                                         tree_leaves(state["v"]))]
-    like = state["params"]
+           for path, p, g, m, v in zip(paths, params, tree_leaves(grads),
+                                       moments, tree_leaves(state["v"]))]
 
     def tree(i, refs):
-        return tree_unflatten(like, [shd.like(r, o[i])
+        return tree_unflatten(refs, [shd.like(r, o[i])
                                      for r, o in zip(tree_leaves(refs), out)])
     new_state = {
-        "params": tree(0, like),
+        "params": tree_unflatten(state["params"], _from_zero(
+            paths, params, moments, [o[0] for o in out])),
         "m": tree(1, state["m"]),
         "v": tree(2, state["v"]),
-        "step": state["step"] + 1,
+        "step": shd.like(state["step"], step + 1),
     }
     if new_ef is not None:
         new_state["ef"] = new_ef
     return new_state, {"grad_norm": gnorm, "lr": lr}
-
-
-def _relayout(ref, full_t):
-    """``full_t`` laid out as ``ref``: its local slice, as a DTensor."""
-    if not isinstance(ref, DTensor):
-        return full_t
-    return shd.like(ref, shd.local_slice(full_t, ref.device_mesh,
-                                         ref.placements))
 
 
 def make_train_step(model, cfg: OptConfig
@@ -225,7 +375,8 @@ def make_train_step(model, cfg: OptConfig
     metrics plus ``grad_norm`` (before clipping) and ``lr``."""
     def train_step(state: TrainState, batch):
         (_, metrics), grads = loss_and_grads(model, state["params"], batch)
-        new_state, opt_metrics = apply_updates(state, grads, cfg)
+        new_state, opt_metrics = apply_updates(state, grads, cfg,
+                                               shd.batch_dims(batch))
         return new_state, {**metrics, **opt_metrics}
 
     return train_step

@@ -17,7 +17,9 @@ gradient, and a reduced train step (which reaches no kernel) on the card
 equals the CPU's at 1e-4.  The grid layer on the card (an exhaustive
 penalty grid, a store round trip) equals the CPU's field for field.  The
 dry run's per-device step traced on the meta device counts the card's
-kernel launches and the same FLOPs.
+kernel launches and the same FLOPs.  Two gloo ranks on the card run the
+data-parallel ZeRO-1 step and the sequence-sharded decode as world 1
+does.
 """
 import dataclasses
 
@@ -664,3 +666,100 @@ def test_dryrun_trace_equals_card(card, arch, kind):
     assert total == {k: 2 * v for k, v in launches.items()}
     assert got["flops"] == meta["flops"] and got["ops"] == meta["ops"]
     assert (kind == "prefill") == bool(launches)
+
+
+def _data_axes_inputs(card):
+    """The reduced smollm-135m, its weights, a train batch whose rows keep
+    32 - 3 r tokens (unequal data shards) and a decode cache after an
+    11-token prefill (32 positions), all on ``card``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMData, to_device
+    from repro_torch.models import get_model, init_params
+    cfg = get_config("smollm-135m").reduced()
+    params = init_params(cfg, torch.Generator(card).manual_seed(1), card)
+    batch = to_device(SyntheticLMData(DataConfig(batch=8, seq=32),
+                                      cfg).batch_at(0), card)
+    keep = 32 - 3 * torch.arange(8, device=card)[:, None]
+    batch["mask"] = (torch.arange(32, device=card)[None] < keep).float()
+    prompt = torch.randint(0, cfg.vocab, (2, 11), device=card,
+                           generator=torch.Generator(card).manual_seed(2))
+    return cfg, params, batch, prompt
+
+
+def _data_axes_card(card, mesh_dp=None, mesh_seq=None):
+    """Two ZeRO-1 steps (the batch cut over ``mesh_dp``'s data axis) and
+    eight decode steps (the KV sequence cut over ``mesh_seq``) of the
+    reduced smollm-135m, dense and int8-KV; world 1 when the meshes are
+    None: (losses, full parameters, {case: logits})."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import specs as S
+    from repro_torch.models import get_model
+    from repro_torch.optim import OptConfig, init_train_state, make_train_step
+    cfg, params, batch, prompt = _data_axes_inputs(card)
+    ocfg = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    state = init_train_state(params, ocfg)
+    if mesh_dp is not None:
+        state = S.lay_out(state, mesh_dp, S.state_shardings(mesh_dp, cfg,
+                                                            state))
+        batch = S.lay_out(batch, mesh_dp, S.batch_shardings(mesh_dp, cfg,
+                                                            batch))
+    step = make_train_step(get_model(cfg), ocfg)
+    losses = []
+    for _ in range(2):
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))
+    logits = {}
+    for kvq in (False, True):
+        dcfg = dataclasses.replace(cfg, kv_quant=kvq)
+        model = get_model(dcfg)
+        _, cache = model.prefill(params, {"tokens": prompt}, 32)
+        shape = ShapeConfig("t", 32, 2, "decode")
+        if mesh_seq is not None:
+            cache = S.lay_out(cache, mesh_seq, S.cache_layout(
+                mesh_seq, dcfg, cache, shape))
+        out = []
+        for i in range(8):
+            tok = prompt[:, i]
+            if mesh_seq is not None:
+                tok = S.lay_out(tok, mesh_seq, S.token_shardings(mesh_seq,
+                                                                 shape))
+            lg, cache = model.decode_step(params, cache, tok)
+            out.append(sh.full(lg).cpu())
+        logits["kvq" if kvq else "dense"] = torch.stack(out)
+    return losses, sh.unshard(state["params"]), logits
+
+
+def _data_axes_world(rank, world, out_dir):
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.tree import tree_map
+    card = torch.device("cuda", 0)
+    losses, params, logits = _data_axes_card(
+        card, make_mesh((2, 1), ("data", "model")),
+        make_mesh((1, 2), ("data", "model")))
+    if rank == 0:
+        torch.save((losses, tree_map(lambda t: t.cpu(), params), logits),
+                   f"{out_dir}/data_axes.pt")
+
+
+@pytest.mark.cuda
+def test_data_axes_two_ranks_on_card_equal_world_one(card, tmp_path):
+    """Two gloo ranks on the card: the reduced smollm-135m step with a
+    ZeRO-1 state on (2, 1) and a batch cut over data (unequal masks), and
+    the decode with the KV sequence cut over (1, 2), dense and int8-KV,
+    against world 1 on the card: losses at 1e-4 relative, parameters at
+    2e-4, float32 logits at 1e-5 of the largest (int8-KV 1e-3)."""
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.tree import tree_leaves
+    run_world(_data_axes_world, 2, tmp_path / "store",
+              args=(str(tmp_path),), device="cuda", backend="gloo",
+              timeout=300)
+    losses, params, logits = torch.load(tmp_path / "data_axes.pt")
+    w_losses, w_params, w_logits = _data_axes_card(card)
+    np.testing.assert_allclose(losses, w_losses, rtol=1e-4)
+    for a, b in zip(tree_leaves(w_params), tree_leaves(params)):
+        torch.testing.assert_close(b, a.cpu(), rtol=2e-4, atol=2e-4)
+    for case, tol in (("dense", 1e-5), ("kvq", 1e-3)):
+        want = w_logits[case]
+        torch.testing.assert_close(logits[case], want, rtol=0,
+                                   atol=tol * float(want.abs().max()))
