@@ -141,8 +141,22 @@ Phases, each failing the run on any mismatch:
      sweep mesh on two ranks: (a)'s DS_PGM grid over miss_penalty (its
      stacked build sharded) and (e)'s exhaustive grid, field for field
      equal to ``mesh=None`` on one rank, each rank's subset-DP launches
-     equal to the single rank's.  ``python3 chip_smoke.py --phase 10``
-     runs phases 1, 6 and 10 alone and prints no result;
+     equal to the single rank's; (h6) the data axes (below); (h7)
+     tensor-parallel serving on two gloo ranks of card 0 on (1, 2):
+     smollm-135m (9 heads on 2 ranks: every rank computes every head,
+     ``wo`` row-parallel; the tied embedding vocab-parallel) and
+     mamba2-370m (its SSM heads, state and conv cache on ``model``) at
+     their published configs, batch 2, a TP_PROMPT-token prefill and
+     TP_STEPS greedy decode steps fed world 1's tokens, against world 1
+     from the same weights: float32 logits within DEC_TOL_F32 of the
+     largest |logit| and tokens equal; bf16 weights within the arch's
+     fixed TP_BF16_SHARE of world 1's, with the argmax equal where world
+     1's top-two gap exceeds the error, and world 1 and the mesh each
+     within that share of the float32 witness (the same bf16 weights
+     computed in float32 on the card); each rank's parameter bytes
+     and peak memory beside world 1's, its kernel launches (flash a
+     layer, SSD a block) checked.  ``python3 chip_smoke.py --phase 10`` runs phases
+     1, 6 and 10 alone and prints no result;
  11. the dry run (``repro_torch.launch.dryrun``): ``python -m
      repro_torch.launch.dryrun --all --mesh both --force`` as a child
      process, started right after phase 1 so that its host-only tracing
@@ -1953,6 +1967,24 @@ MOE_SEED = 19
 #: reference's default 3e-4
 DP_STEPS, DP_SEED, DP_LR, DEC_PROMPT, DEC_STEPS = 5, 22, 3e-4, 64, 16
 DEC_TOL_F32, BF16_LOGIT_SHARE = 1e-5, 0.02
+#: (h7) tensor-parallel serving on (1, 2): a TP_PROMPT-token prefill and
+#: TP_STEPS decode steps at batch 2, weights drawn from TP_SEED, float32
+#: at (h6)'s decode gate.  bf16 at a fixed share of the largest |logit|
+#: an arch: BF16_LOGIT_SHARE for smollm-135m; for mamba2-370m's 48
+#: blocks BF16_DEEP_SHARE, since every bf16 path of it (card kernels, the
+#: SSD's plain version on the card, the CPU, two TP ranks) lies 4.3e-2 to
+#: 6.6e-2 from the float32 witness from the prefill on, not growing over
+#: the decode steps, and 3.5e-2 to 4.9e-2 from the others
+#: (``repro_torch.tools.bf16_drift``, NVIDIA H100 80GB HBM3, 700.00 W;
+#: PERF.md section 6).  TP_STEPS cut from 16 to 8: (h7) took 111.8 s
+#: inside the whole script and 62.6 s alone (same card; PERF.md section
+#: 5), above the minute it is kept to, most of it gloo's collectives of
+#: the decode steps
+TP_PROMPT, TP_STEPS, TP_SEED = 64, 8, 23
+BF16_DEEP_SHARE = 0.08
+TP_BF16_SHARE = {"smollm-135m": BF16_LOGIT_SHARE,
+                 "mamba2-370m": BF16_DEEP_SHARE}
+TP_ARCHS = tuple(TP_BF16_SHARE)
 
 
 def _mesh_dir() -> Path:
@@ -2301,8 +2333,8 @@ def _h6_decode(rank, mesh, dtype: str):
     logits, cache = model.prefill(params, {"tokens": prompt}, max_len)
     sharded = {k: v if k == "len" else v.clone() for k, v in cache.items()}
     shape = ShapeConfig("h6", max_len, 2, "decode")
-    sharded = S.lay_out(sharded, mesh, S.cache_layout(mesh, cfg, sharded,
-                                                      shape))
+    sharded = S.lay_out(sharded, mesh, S.cache_shardings(mesh, cfg, sharded,
+                                                         shape))
     tok = logits.argmax(-1)
     want, got, toks = [], [], []
     t_one = t_mesh = 0.0
@@ -2391,6 +2423,168 @@ def _mesh_data_axes(root: Path, card: str) -> None:
               f"{d['ms_mesh']:.2f} ms a step on the mesh, "
               f"{d['ms_world1']:.2f} ms at world 1 ({card})")
     print(f"[mesh h6] {secs:.1f} s with the processes' start ({card})")
+
+
+def _h7_serve(arch: str, dtype: str, mesh=None, toks=None):
+    """(h7) ``arch``'s published config (``dtype`` float32: float32
+    compute; bfloat16: bf16 weights and compute; witness: bf16 weights,
+    float32 compute) at batch 2, its weights and prompt drawn on the
+    card: the prefill and TP_STEPS decode steps, greedy (``toks`` None)
+    or fed ``toks``, with tensor-parallel blocks on ``mesh`` (world 1
+    when None); the logits, the tokens fed, the parameter bytes this
+    rank holds, its peak memory above what was allocated before, the
+    seconds of the prefill and decode, and the kernels' launches (their
+    counts set to 0 just before the prefill and read after the last
+    step)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import specs as S
+    from repro_torch.models import get_model, init_params
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, dtype="float32") if dtype == "float32" \
+        else dataclasses.replace(cfg, param_dtype="bfloat16")
+    if dtype == "witness":
+        cfg = dataclasses.replace(cfg, dtype="float32")
+    model = get_model(cfg)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(TP_SEED),
+                         "cuda")
+    prompt = torch.randint(0, cfg.vocab, (2, TP_PROMPT), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(
+                               TP_SEED + 1))
+    shape = ShapeConfig("h7", TP_PROMPT + TP_STEPS, 2, "decode")
+    rules = None
+    if mesh is not None:
+        params = sh.distribute(params, mesh, sh.param_shardings(
+            mesh, params, cfg.tie_embeddings))
+        rules = S.make_rules(mesh, cfg)
+    pbytes = sum(sh.local(x).numel() * sh.local(x).element_size()
+                 for x in tree_leaves(params))
+    kw = {} if cfg.family == "ssm" else {"max_len": TP_PROMPT + TP_STEPS}
+    logits, fed = [], []
+    fa.reset_launches()
+    ssd.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad(), sh.activation_rules(rules):
+        lg, cache = model.prefill(params, {"tokens": prompt}, **kw)
+        if mesh is not None:
+            cache = S.lay_out(cache, mesh, S.cache_shardings(mesh, cfg,
+                                                             cache, shape))
+        for i in range(TP_STEPS):
+            logits.append(lg.float())
+            tok = lg.argmax(-1) if toks is None else toks[i]
+            fed.append(tok)
+            if mesh is not None:
+                tok = S.lay_out(tok, mesh, S.token_shardings(mesh, shape))
+            lg, cache = model.decode_step(params, cache, tok)
+            lg = sh.full(lg)
+        logits.append(lg.float())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    logits = torch.stack(logits)
+    launches = {**fa.LAUNCHES, **ssd.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() - base
+    return logits, fed, pbytes, peak, secs, launches
+
+
+def _h7_world(rank, world, out_dir):
+    """(h7) on both ranks: world 1 (every rank computes it, only rank 0
+    keeps it), then the tensor-parallel run fed world 1's tokens; for
+    bf16 weights rank 0 also computes the float32 witness."""
+    import gc
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 2), ("data", "model"))
+    res = []
+    for arch in TP_ARCHS:
+        for dtype in ("float32", "bfloat16"):
+            want, toks, pb1, peak1, s1, _ = _h7_serve(arch, dtype)
+            gc.collect()
+            torch.cuda.empty_cache()
+            got, _, pb2, peak2, s2, launches = _h7_serve(arch, dtype, mesh,
+                                                         toks)
+            gc.collect()
+            torch.cuda.empty_cache()
+            err = float((got - want).abs().max())
+            top2 = want.topk(2, dim=-1).values
+            clear = (top2[..., 0] - top2[..., 1]) > err
+            same = got.argmax(-1) == want.argmax(-1)
+            witness = {}
+            if dtype == "bfloat16" and rank == 0:
+                f32 = _h7_serve(arch, "witness", toks=toks)[0]
+                top = float(f32.abs().max())
+                witness = {"world1": float((want - f32).abs().max()) / top,
+                           "mesh": float((got - f32).abs().max()) / top}
+            res.append({"arch": arch, "dtype": dtype,
+                        "share": err / float(want.abs().max()),
+                        "steps": [float((g - w).abs().max()) /
+                                  float(want.abs().max())
+                                  for g, w in zip(got, want)],
+                        "witness": witness,
+                        "tokens_equal": bool(same.all()),
+                        "clear_equal": bool(same[clear].all()),
+                        "clear": int(clear.sum()), "n": int(clear.numel()),
+                        "param_bytes": pb2, "param_bytes_world1": pb1,
+                        "peak": peak2, "peak_world1": peak1,
+                        "s": s2, "s_world1": s1, "launches": launches})
+    if rank == 0:
+        (Path(out_dir) / "h7.json").write_text(json.dumps(res))
+
+
+def _mesh_tp(root: Path, card: str) -> None:
+    """(h7) tensor-parallel serving on two ranks of card 0 over gloo
+    against world 1."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_world
+    t0 = time.perf_counter()
+    run_world(_h7_world, 2, root / "h7.store", args=(str(root),),
+              device="cuda", backend="gloo", timeout=600)
+    secs = time.perf_counter() - t0
+    for d in json.loads((root / "h7.json").read_text()):
+        if d["dtype"] == "float32":
+            ok = d["share"] <= DEC_TOL_F32 and d["tokens_equal"]
+            gate = f"tol {DEC_TOL_F32}, tokens equal {d['tokens_equal']}"
+        else:
+            limit, w = TP_BF16_SHARE[d["arch"]], d["witness"]
+            ok = d["share"] <= limit and d["clear_equal"] and \
+                max(w.values()) <= limit
+            gate = (f"tol {limit}, argmax equal at the {d['clear']} of "
+                    f"{d['n']} rows whose top-two gap exceeds the error: "
+                    f"{d['clear_equal']}; the prefill's share "
+                    f"{d['steps'][0]!r}, the decode steps' largest "
+                    f"{max(d['steps'][1:])!r}; from the float32 witness: "
+                    f"world 1 {w['world1']!r}, the mesh {w['mesh']!r}, "
+                    f"tol {limit}")
+        check(ok, f"h7 {d}")
+        # the path went through the kernels: one flash launch a layer's
+        # prefill attention (smollm-135m), one SSD call a Mamba block's
+        # (mamba2-370m), on each rank; decode reaches neither
+        cfg = get_config(d["arch"])
+        want = ({"flash_attention": cfg.n_layers, "ssd_scan": 0}
+                if cfg.family == "dense" else
+                {"flash_attention": 0, "ssd_scan": cfg.n_layers})
+        check(d["launches"] == want, f"h7 {d['arch']} launches "
+              f"{d['launches']}, expected {want}")
+        print(f"[mesh h7] tensor-parallel serving, {d['arch']} published, "
+              f"{d['dtype']} weights{' and compute' if d['dtype'] == 'float32' else ''}, batch 2, "
+              f"(1, 2) mesh over gloo on card 0, a {TP_PROMPT}-token "
+              f"prefill and {TP_STEPS} decode steps: logits within "
+              f"{d['share']!r} of the largest |logit| of world 1's ({gate}); "
+              f"parameters {d['param_bytes']} bytes a rank vs "
+              f"{d['param_bytes_world1']} at world 1; peak memory "
+              f"{d['peak'] / 1e9:.3f} GB a rank vs "
+              f"{d['peak_world1'] / 1e9:.3f} GB; prefill + decode "
+              f"{d['s']:.2f} s vs {d['s_world1']:.2f} s at world 1; kernel "
+              f"launches a rank (counts set to 0 before the prefill) "
+              f"{json.dumps(d['launches'])} ({card})")
+    print(f"[mesh h7] {secs:.1f} s with the processes' start ({card})")
 
 
 def _grid_fields(grid) -> dict:
@@ -2490,7 +2684,7 @@ def phase_mesh(dev, grid_e, launches_e: int, card: str) -> None:
     """Phase 10: the device mesh — the launcher on meshes (h1, h2), the
     int8 all-reduce (h3), MoE expert parallelism (h4), the sweep mesh
     (h5), the data-parallel ZeRO-1 step and the sequence-sharded decode
-    (h6)."""
+    (h6), tensor-parallel serving (h7)."""
     import shutil
     root = _mesh_dir()
     shutil.rmtree(root, ignore_errors=True)
@@ -2502,6 +2696,7 @@ def phase_mesh(dev, grid_e, launches_e: int, card: str) -> None:
         _mesh_moe(root, card)
         _mesh_grid(root, grid_e, launches_e, dev, card)
         _mesh_data_axes(root, card)
+        _mesh_tp(root, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"[mesh] phase 10: {time.perf_counter() - t0:.1f} s; carried "
@@ -2509,8 +2704,10 @@ def phase_mesh(dev, grid_e, launches_e: int, card: str) -> None:
           f"norm, h3's float reference), MAX float32 and SUM int32 (h3), "
           f"all_gather_into_tensor (h2's parameter gathers and checkpoint, "
           f"h4's token blocks, h5's table rows, h6's ZeRO-1 parameter "
-          f"slices), reduce_scatter_tensor (h6's gradients), all_reduce "
-          f"MAX float32 (h6's decode maxima), all_to_all_single (h4), "
+          f"slices; h7's column, sequence and logit gathers), "
+          f"reduce_scatter_tensor (h6's gradients, h7's sequence-parallel "
+          f"products), all_reduce MAX float32 (h6's and h7's decode "
+          f"maxima), all_to_all_single (h4), "
           f"barrier; over NCCL at world 1 (h1, h2's resume) only "
           f"barrier: a one-rank mesh dim issues no gather or reduce "
           f"({card})")
@@ -2585,14 +2782,16 @@ def _dryrun_records(sweep, card: str) -> dict:
                   rl["bottleneck"] in ("compute", "memory", "collective"),
                   f"dry run {path.name}: {rl}")
             # the data axes and the cache as the reference lays them out:
-            # a train cell reduce-scatters its gradient, a decode cell
-            # all-reduces its softmax statistics, a MoE train or prefill
-            # cell exchanges tokens with the expert shards
+            # a train cell reduce-scatters its gradient, a prefill its
+            # sequence-parallel products, a decode cell all-reduces its
+            # softmax statistics, a MoE train or prefill cell exchanges
+            # tokens with the expert shards
             kind = shape.split("_")[0]
             family = get_config(arch).family
             check(rec["departures"] == DEPARTURES and
                   list(coll) == list(COLLECTIVE_KINDS) and
-                  (coll["reduce-scatter"] > 0) == (kind == "train") and
+                  (coll["reduce-scatter"] > 0) ==
+                  (kind in ("train", "prefill")) and
                   (kind not in ("decode", "long") or family == "ssm" or
                    coll["all-reduce"] > 0) and
                   (coll["all-to-all"] > 0) ==

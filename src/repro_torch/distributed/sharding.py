@@ -21,18 +21,22 @@ entry.  :func:`placements` turns a spec into DTensor placements
 (``Shard(d)`` / ``Replicate()`` per mesh dimension), :func:`distribute`
 lays a tree out.
 
-How the models run on sharded parameters.  The port's models compute
-every block on plain tensors: :func:`unshard` gathers each DTensor
-parameter at the model's entry (Shard -> Replicate by all-gathers over
-the mesh dims' process groups, whose backward is the local slice of the
-gradient — no collective), so a rank's forward and backward are the
-single-device computation bit for bit and activations stay replicated.
-This departs from the reference, whose GSPMD partitions the products
-over ``model`` (ROADMAP A8); the reference's activation constraints
-(``shard_activation``, ``moe_constraint``) have nothing to lay out here
-and are not ported.  Only what the reference runs under ``shard_map`` is
-divided: MoE expert parallelism (``models.layers._moe_shardmap``), whose
-expert weights stay sharded (``unshard(params, keep=is_moe_expert)``).
+How the models run on sharded parameters.  The serving path
+(``prefill``, ``decode_step``) computes tensor-parallel over ``model``
+on the parameters' shards, as the reference's GSPMD partitions the
+products from these specs (``distributed.tp``, which also lays the
+prefill's residual out sequence-parallel where the reference's
+``shard_activation`` does).  The training path (``forward``, ``loss``)
+computes every block on plain tensors: :func:`unshard` gathers each
+DTensor parameter at the model's entry (Shard -> Replicate by
+all-gathers over the mesh dims' process groups, whose backward is the
+local slice of the gradient — no collective), so a rank's forward and
+backward are the single-device computation bit for bit and activations
+stay replicated (ROADMAP A8 6b, training TP).  What the reference runs
+under ``shard_map`` is divided on both paths: MoE expert parallelism
+(``models.layers._moe_shardmap``), whose expert weights stay sharded
+(``unshard(params, keep=is_moe_expert)``); ``moe_constraint`` has no
+counterpart.
 Parameters, AdamW's moments and the update are sharded as the rules say.
 :class:`MeshRules` installed by :func:`activation_rules` turn expert
 parallelism on; the launcher installs none, as the reference's does.
@@ -308,8 +312,18 @@ def distribute(tree, mesh: DeviceMesh, shardings):
 
 def lay_out(t, mesh: DeviceMesh, pl):
     """The full tensor ``t`` (on every rank) laid out by ``pl``: this
-    rank's part, nothing sent."""
+    rank's part, nothing sent.  A DTensor ``t`` laid out by ``pl``
+    already (a tensor-parallel prefill's SSM state) stays as it is; one
+    laid out otherwise is refused, as regathering it would hide both the
+    cost and the disagreement."""
     if not isinstance(t, torch.Tensor):
+        return t
+    if isinstance(t, DTensor):
+        if isinstance(pl, BlockPlacement) or t.device_mesh != mesh or \
+                _sharded(mesh, t.placements) != _sharded(mesh, pl):
+            raise ValueError(f"a DTensor laid out by {tuple(t.placements)} "
+                             f"cannot be laid out by {pl}: lay it out so "
+                             f"where it is computed")
         return t
     if isinstance(pl, BlockPlacement):
         # a storage of its own, as distribute_tensor gives a shard

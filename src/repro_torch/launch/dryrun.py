@@ -25,19 +25,25 @@ data axes); and the port's real step runs once under the cost trace
 What the per-device step is: the reference's ``lower_cell`` with its
 ``in_shardings`` as the inputs' layouts (``launch.specs.lay_out``) —
 the train state by ``state_shardings`` (ZeRO-1 moments), the batch by
-``batch_shardings``, the decode cache by ``cache_layout`` and the tokens
-by ``token_shardings`` — under ``activation_rules(make_rules(mesh,
+``batch_shardings``, the decode cache by ``cache_shardings`` and the
+tokens by ``token_shardings`` — under ``activation_rules(make_rules(mesh,
 cfg))``, as ``src/repro/launch/dryrun.py:72-108`` installs them.  So a
 train cell runs a data-parallel step on its rank's rows (the gradient
 reduce-scattered over the data axes into the ZeRO-1 layout, the new
-parameters all-gathered back), a decode cell attends over its slice of
-the KV sequence (all-reduces of the softmax statistics and of the
-partial outputs), and a MoE cell's dispatch takes expert parallelism
-(all-to-alls over ``model``).  Where it still departs from the
-reference's design (ROADMAP A8 item 6b), the record says under
-``departures``: every rank gathers its parameters at the model's entry
-and computes every block replicated over ``model``, and the SSM decode
-state and conv cache stay replicated over ``model``.
+parameters all-gathered back); a prefill or decode cell computes its
+blocks tensor-parallel over ``model`` on the parameters' shards
+(``distributed.tp``: the activations' column gathers, the float32
+all-reduces of the row-parallel products, the vocab-parallel embedding
+and head; a prefill's residual sequence-parallel between blocks, its
+row-parallel products reduce-scattered over the sequence; the SSM
+state and conv cache on the rank's heads and channels); a decode cell
+attends over its slice of the KV sequence (all-reduces of the softmax
+statistics and of the partial outputs); and a MoE cell's dispatch takes
+expert parallelism (all-to-alls over ``model``, or in decode the
+rank's experts and an all-gather of their outputs).  Where it still
+departs from the reference's design (ROADMAP A8 item 6b), the record
+says under ``departures``: the train step gathers its parameters at the
+model's entry and computes every block replicated over ``model``.
 
 Each cell writes ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json``
 with the reference record's keys where their meaning carries
@@ -79,10 +85,9 @@ from repro_torch.configs import cells, get_config, get_shape
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed.sharding import (BlockShard,
                                               activation_rules, batch_dims,
-                                              distribute, is_moe_expert,
-                                              like, local, local_batch,
-                                              mesh_size, param_shardings,
-                                              unshard)
+                                              distribute, like, local,
+                                              local_batch, mesh_size,
+                                              param_shardings)
 from repro_torch.launch import specs as S
 from repro_torch.launch.cost import CostTrace
 from repro_torch.launch.mesh import (data_axes, fake_world,
@@ -97,10 +102,9 @@ ART = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
 MESHES = {"single": 256, "multi": 512}
 #: the port's departures from the reference design that a record names
 DEPARTURES = {
-    "replicated_blocks": "parameters gathered at entry, every block "
-                         "computed replicated over 'model'; SSM decode "
-                         "state and conv cache replicated over 'model' "
-                         "(A8 6b, TP)",
+    "replicated_blocks": "train step: parameters gathered at entry, blocks "
+                         "replicated over 'model' (A8 6b, train TP)",
+    "tp_serving": True,
     "zero1": True,
     "expert_parallel": True,
     "kv_cache_sequence_sharded": True,
@@ -193,7 +197,6 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh, dev: torch.device,
                 mesh, params, cfg.tie_embeddings))
         if shape.kind == "prefill":
             def step(params, batch):
-                params = unshard(params, keep=is_moe_expert)
                 if not batch_dims(batch):
                     return model.prefill(params, batch)
                 with local_batch():     # this rank's rows
@@ -204,12 +207,10 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh, dev: torch.device,
                 args[1] = S.lay_out(args[1], mesh, S.batch_shardings(
                     mesh, cfg, args[1]))
         else:
-            def step(params, cache, tokens):
-                return model.decode_step(unshard(params, keep=is_moe_expert),
-                                         cache, tokens)
+            step = model.decode_step
             args = [params, inputs["cache"], inputs["tokens"]]
             if mesh is not None:
-                args[1] = S.lay_out(args[1], mesh, S.cache_layout(
+                args[1] = S.lay_out(args[1], mesh, S.cache_shardings(
                     mesh, cfg, args[1], shape))
                 args[2] = S.lay_out(args[2], mesh,
                                     S.token_shardings(mesh, shape))

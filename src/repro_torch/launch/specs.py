@@ -18,10 +18,12 @@ cut over the data axes makes the step data-parallel (``optim.
 make_train_step``: each rank's rows, the gradient summed over the data
 groups); the decode cache's KV sequence is cut as :func:`cache_shardings`
 says and the decode attention reduces its statistics and outputs over
-those groups (``models.layers.attention_decode``).  One departure stays:
-the blocks compute replicated over ``model`` (ROADMAP A8 6b), so
-:func:`cache_layout` keeps the SSM decode state and conv cache
-replicated over ``model`` where the reference shards their heads.
+those groups (``models.layers.attention_decode``); parameters laid out by
+``distributed.sharding.param_shardings`` make ``prefill`` and
+``decode_step`` tensor-parallel over ``model`` (``distributed.tp``), the
+SSM decode state holding the rank's heads and the conv cache its
+channels, as :func:`cache_shardings` lays them out.  The train step
+still gathers its parameters at entry (ROADMAP A8 6b, training TP).
 """
 from __future__ import annotations
 
@@ -110,20 +112,6 @@ def make_rules(mesh: DeviceMesh, cfg: ModelConfig) -> MeshRules:
                      seq_parallel=cfg.seq_parallel)
 
 
-def cache_layout(mesh: DeviceMesh, cfg: ModelConfig, cache,
-                 shape: ShapeConfig) -> Dict:
-    """The specs the port lays a decode cache out by:
-    :func:`cache_shardings`' with ``"model"`` dropped from the SSM
-    ``state`` and ``conv`` entries, which the port keeps replicated over
-    ``model`` (their heads split only under the blocks' TP, ROADMAP A8
-    6b)."""
-    def drop(spec: Spec) -> Spec:
-        return tuple(None if a == "model" else a for a in spec)
-    return {name: drop(spec) if name in ("state", "conv") else spec
-            for name, spec in cache_shardings(mesh, cfg, cache,
-                                              shape).items()}
-
-
 def to_placements(mesh: DeviceMesh, specs) -> Any:
     """The layouts of a tree of specs over the port's leaves: DTensor
     placements (a per-block leaf drops its JAX leaf's block axis), or a
@@ -147,5 +135,7 @@ def lay_out(tree, mesh: DeviceMesh, specs):
     the same full tensors on every rank) laid out by a tree of ``specs``
     of the same structure: each rank keeps its slice, nothing is sent
     (``distributed.sharding.distribute``); a leaf that is not a tensor
-    (``len``) stays as it is."""
+    (``len``) stays as it is, and a DTensor already laid out so (a
+    tensor-parallel prefill's SSM state) too; a DTensor laid out
+    otherwise is refused."""
     return distribute(tree, mesh, to_placements(mesh, specs))

@@ -23,10 +23,13 @@ the JAX package's plain, differentiable attention in the encoder
 the whole of ``ck``/``cv``.
 
 On a device mesh the parameters are DTensors: ``forward`` and ``loss``
-gather them at their entry (``distributed.sharding.unshard``, an
-all-gather of each sharded parameter, the embedding table included) and
-run the blocks on plain tensors; activations stay replicated, so the
-reference's ``shard_activation`` calls are left out.
+gather them at their entry (``distributed.sharding.unshard``) and run
+the blocks on plain tensors.  ``prefill`` and ``decode_step`` compute
+tensor-parallel over ``model`` on the parameters' shards
+(``distributed.tp``; ``models.ssm.mamba_forward``), the prefill's
+residual sequence-parallel under mesh rules. The encoder's residual is
+sequence-parallel over its frames, the decoder's over its prompt; the
+cross K/V are whole.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import tp
 from repro_torch.distributed.sharding import unshard
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import _remat, lm_loss
@@ -76,14 +80,14 @@ class EncDecLM:
         }
 
     def _embed(self, params, tokens):
-        return params["embed"][tokens].to(self.cdt)
+        return tp.embed(params["embed"], tokens, self.cdt)
 
     def _logits(self, params, x):
         x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        return (x @ params["unembed"].to(self.cdt)).to(F32)
+        return tp.logits(x, params["unembed"], 1)
 
-    def _mlp(self, lp, x, ln: str):
-        return L.mlp_residual(lp["mlp"], lp[ln], x, self.cfg.norm_eps)
+    def _mlp(self, lp, x, ln: str, sp=None):
+        return L.mlp_residual(lp["mlp"], lp[ln], x, self.cfg.norm_eps, sp)
 
     # ---------------- encoder ----------------
     def encode(self, params, frames, *, kernel: bool = True
@@ -96,22 +100,25 @@ class EncDecLM:
         cfg = self.cfg
         x = frames.to(self.cdt) @ params["frame_proj"].to(self.cdt)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        sp = tp.seq_axis(x.shape[1]) if kernel else None
+        x = tp.block(x, 1, sp)
 
         def block(h, lp):
             hn = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
             if kernel:
-                o, _, _ = L.flash_attn(lp["attn"], hn, cfg, positions,
-                                       causal=False)
+                o, _, _ = L.flash_attn(lp["attn"], tp.gather_seq(hn, sp),
+                                       cfg, positions, causal=False, sp=sp)
             else:
                 o = L.attn_forward(lp["attn"], hn, cfg, positions,
                                    causal=False)
-            return self._mlp(lp, h + o, "ln2")
+            return self._mlp(lp, h + o, "ln2", sp)
 
         if not kernel:
             block = _remat(block, cfg)
         for lp in params["enc_layers"]:
             x = block(x, lp)
-        return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
+        return tp.gather_seq(L.rms_norm(x, params["enc_norm"], cfg.norm_eps),
+                             sp)
 
     # ---------------- forward / train ----------------
     def _body(self, params, batch):
@@ -182,24 +189,29 @@ class EncDecLM:
         """Encoder pass, the cross K/V, then the decoder's prompt: last-token
         logits [B, V] and the cache (self K/V padded to ``max_len``)."""
         cfg = self.cfg
+        params = tp.localize(params)
         enc = self.encode(params, batch["frames"])
         ck, cv = self.prefill_cross(params, enc)
         x = self._embed(params, batch["tokens"])
         s = x.shape[1]
+        sp = tp.seq_axis(s)
+        x = tp.block(x, 1, sp)
         positions = torch.arange(s, device=x.device)[None, :]
         ks, vs = [], []
         for lp, ckl, cvl in zip(params["dec_layers"], ck, cv):
-            o, k, v = L.flash_attn(lp["attn"],
-                                   L.rms_norm(x, lp["ln1"], cfg.norm_eps),
-                                   cfg, positions, causal=True)
+            o, k, v = L.flash_attn(
+                lp["attn"], tp.gather_seq(L.rms_norm(x, lp["ln1"],
+                                                     cfg.norm_eps), sp),
+                cfg, positions, causal=True, sp=sp)
             x = x + o
-            co, _, _ = L.flash_attn(lp["cross"],
-                                    L.rms_norm(x, lp["ln2"], cfg.norm_eps),
-                                    cfg, None, causal=False, kv=(ckl, cvl))
-            x = self._mlp(lp, x + co, "ln3")
+            co, _, _ = L.flash_attn(
+                lp["cross"], tp.gather_seq(L.rms_norm(x, lp["ln2"],
+                                                      cfg.norm_eps), sp),
+                cfg, None, causal=False, kv=(ckl, cvl), sp=sp)
+            x = self._mlp(lp, x + co, "ln3", sp)
             ks.append(k)
             vs.append(v)
-        logits = self._logits(params, x[:, -1:])[:, 0]
+        logits = self._logits(params, tp.last_token(x, sp))[:, 0]
         k_all, v_all = L.stack_kv(ks, vs, max_len)
         return logits, {"k": k_all, "v": v_all, "ck": ck, "cv": cv,
                         "len": s}
@@ -213,6 +225,7 @@ class EncDecLM:
         decodes as ``TransformerLM.decode_step`` does, cross attention
         over this rank's slice of ``ck``/``cv`` with no length mask."""
         cfg = self.cfg
+        params = tp.localize(params)
         loc, tokens, seq, wrap = L.decode_inputs(cache, tokens)
         x = self._embed(params, tokens)[:, None]
         clen = int(cache["len"])
@@ -222,13 +235,13 @@ class EncDecLM:
             x = x + L.attn_decode_forward(lp["attn"], hn, cfg, loc["k"][i],
                                           loc["v"][i], clen, seq)
             hn2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-            q = (hn2 @ lp["cross"]["wq"].to(x.dtype)).reshape(
+            q = tp.col_full(hn2, lp["cross"]["wq"]).reshape(
                 b, 1, cfg.n_heads, cfg.head_dim)
             ck, cv = loc["ck"][i], loc["cv"][i]
             enc_len = ck.shape[1] * (seq.parts if seq is not None else 1)
             co = L.attention_decode(q, ck.to(x.dtype), cv.to(x.dtype),
                                     enc_len, seq)
-            x = x + co.reshape(b, 1, -1) @ lp["cross"]["wo"].to(x.dtype)
+            x = x + tp.row(co.reshape(b, 1, -1), lp["cross"]["wo"])
             x = self._mlp(lp, x, "ln3")
         return wrap(self._logits(params, x)[:, 0]), {**cache,
                                                      "len": clen + 1}

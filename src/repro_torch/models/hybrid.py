@@ -25,10 +25,13 @@ differentiable ``ssm.ssd_chunked`` (each Mamba block under
 ``layers.attn_decode_forward``).
 
 On a device mesh the parameters are DTensors: ``forward`` and ``loss``
-gather them at their entry (``distributed.sharding.unshard``, an
-all-gather of each sharded parameter, the embedding table included) and
-run the blocks on plain tensors; activations stay replicated, so the
-reference's ``shard_activation`` calls are left out.
+gather them at their entry (``distributed.sharding.unshard``) and run
+the blocks on plain tensors.  ``prefill`` and ``decode_step`` compute
+tensor-parallel over ``model`` on the parameters' shards
+(``distributed.tp``; ``models.ssm.mamba_forward``), the prefill's
+residual sequence-parallel under mesh rules. The shared blocks are
+tensor-parallel as ``models.transformer``'s, the Mamba blocks as
+``models.mamba_lm``'s.
 """
 from __future__ import annotations
 
@@ -38,9 +41,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import tp
 from repro_torch.distributed.sharding import unshard
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
+from repro_torch.models.mamba_lm import ssm_cache
 from repro_torch.models.transformer import _remat, lm_loss
 
 F32 = torch.float32
@@ -83,14 +88,15 @@ class Zamba2LM:
         }
 
     def _embed(self, params, tokens):
-        return params["embed"][tokens].to(self.cdt)
+        return tp.embed(params["embed"], tokens, self.cdt)
 
     def _logits(self, params, x):
         x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        return (x @ params["unembed"].to(self.cdt)).to(F32)
+        return tp.logits(x, params["unembed"], 1)
 
-    def _mlp(self, sp, x):
-        return L.mlp_residual(sp["mlp"], sp["ln2"], x, self.cfg.norm_eps)
+    def _mlp(self, shared, x, sp=None):
+        return L.mlp_residual(shared["mlp"], shared["ln2"], x,
+                              self.cfg.norm_eps, sp)
 
     def _apps(self, params):
         """(segment's first layer, its size, shared block or None) in
@@ -167,30 +173,35 @@ class Zamba2LM:
         state and conv history, every shared application's K/V (padded to
         ``max_len`` positions)."""
         cfg = self.cfg
+        mesh = tp.mesh_of(params)
+        params = tp.localize(params)
         x = self._embed(params, batch["tokens"])
         s = x.shape[1]
+        seq = tp.seq_axis(s)
+        x = tp.block(x, 1, seq)
         positions = torch.arange(s, device=x.device)[None, :]
         states, convs, ks, vs = [], [], [], []
         for start, size, sp in self._apps(params):
             for lp in params["layers"][start:start + size]:
                 y, st, conv = ssm.mamba_forward(
-                    lp["m"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg,
-                    return_cache=True)
+                    lp["m"], tp.gather_seq(L.rms_norm(x, lp["ln"],
+                                                      cfg.norm_eps), seq),
+                    cfg, return_cache=True, sp=seq)
                 x = x + y
                 states.append(st)
                 convs.append(conv)
             if sp is not None:
                 o, k, v = L.flash_attn(
-                    sp["attn"], L.rms_norm(x, sp["ln1"], cfg.norm_eps), cfg,
-                    positions, causal=True)
-                x = self._mlp(sp, x + o)
+                    sp["attn"], tp.gather_seq(L.rms_norm(x, sp["ln1"],
+                                                         cfg.norm_eps), seq),
+                    cfg, positions, causal=True, sp=seq)
+                x = self._mlp(sp, x + o, seq)
                 ks.append(k)
                 vs.append(v)
         k_all, v_all = L.stack_kv(ks, vs, max_len)
-        logits = self._logits(params, x[:, -1:])[:, 0]
-        return logits, {"state": torch.stack(states),
-                        "conv": torch.stack(convs), "k": k_all, "v": v_all,
-                        "len": s}
+        logits = self._logits(params, tp.last_token(x, seq))[:, 0]
+        return logits, {**ssm_cache(cfg, mesh, states, convs), "k": k_all,
+                        "v": v_all, "len": s}
 
     def decode_step(self, params, cache, tokens) -> Tuple[torch.Tensor,
                                                           Params]:
@@ -200,6 +211,7 @@ class Zamba2LM:
         rank's rows, the shared attention against its slice of the KV
         sequence (``layers.decode_inputs``)."""
         cfg = self.cfg
+        params = tp.localize(params)
         loc, tokens, seq, wrap = L.decode_inputs(cache, tokens)
         x = self._embed(params, tokens)[:, None]
         clen = int(cache["len"])

@@ -56,6 +56,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tp
 from repro_torch.kernels.flash_attention import flash_attention
 
 NEG_INF = -2.0e38
@@ -107,11 +108,17 @@ def rms_norm(x, w, eps: float = 1e-5):
     return (y * (1.0 + w.to(F32))).to(dt)
 
 
-def gated_rms_norm(x, gate, w, eps: float = 1e-5):
-    """Mamba2-style norm(x * silu(gate))."""
+def gated_rms_norm(x, gate, w, eps: float = 1e-5, ax=None):
+    """Mamba2-style norm(x * silu(gate)); with ``ax`` (a ``distributed.tp``
+    axis) ``x``, ``gate`` and ``w`` are the rank's block of the normed dim
+    and the sum of squares is all-reduced over it in float32."""
     dt = x.dtype
     x = x.to(F32) * F.silu(gate.to(F32))
-    var = x.square().mean(dim=-1, keepdim=True)
+    if ax is None:
+        var = x.square().mean(dim=-1, keepdim=True)
+    else:
+        var = tp.sum_f32(x.square().sum(dim=-1, keepdim=True), ax) \
+            / (x.shape[-1] * ax.size)
     y = x * torch.rsqrt(var + eps)
     return (y * (1.0 + w.to(F32))).to(dt)
 
@@ -255,10 +262,9 @@ def qkv_proj(p: Params, x, cfg: ModelConfig, positions):
     to q and k."""
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    cdt = x.dtype
-    q = (x @ p["wq"].to(cdt)).reshape(b, s, hq, dh)
-    k = (x @ p["wk"].to(cdt)).reshape(b, s, hkv, dh)
-    v = (x @ p["wv"].to(cdt)).reshape(b, s, hkv, dh)
+    q = tp.col_full(x, p["wq"]).reshape(b, s, hq, dh)
+    k = tp.col_full(x, p["wk"]).reshape(b, s, hkv, dh)
+    v = tp.col_full(x, p["wv"]).reshape(b, s, hkv, dh)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
@@ -267,8 +273,8 @@ def cross_kv(p: Params, enc, cfg: ModelConfig):
     """k, v [B,Se,Hkv,D] of the encoder states ``enc`` [B,Se,d]."""
     b, se, _ = enc.shape
     shape = (b, se, cfg.n_kv_heads, cfg.head_dim)
-    return ((enc @ p["wk"].to(enc.dtype)).reshape(shape),
-            (enc @ p["wv"].to(enc.dtype)).reshape(shape))
+    return (tp.col_full(enc, p["wk"]).reshape(shape),
+            tp.col_full(enc, p["wv"]).reshape(shape))
 
 
 def attn_forward(p: Params, x, cfg: ModelConfig, positions, *,
@@ -290,20 +296,48 @@ def attn_forward(p: Params, x, cfg: ModelConfig, positions, *,
 
 
 def flash_attn(p: Params, hn, cfg: ModelConfig, positions, *,
-               causal: bool, kv=None):
+               causal: bool, kv=None, sp=None):
     """A prefill attention block through the flash kernel: (out [B,S,d],
     k, v).  Self attention of ``hn`` [B,S,d] (rotary on q and k), or with
     ``kv`` (k, v [B,Se,Hkv,D] of the encoder states) cross attention, q
-    without rotary."""
+    without rotary.  On the model axis (``distributed.tp``) q, k and v
+    are whole (their columns gathered), the kernel runs on the rank's
+    heads (:func:`local_heads`) and ``wo`` is row-parallel; with ``sp``
+    (``hn`` the whole sequence of a sequence-parallel residual) ``out`` is
+    the rank's block of the sequence."""
     b, s, _ = hn.shape
     if kv is None:
         q, k, v = qkv_proj(p, hn, cfg, positions)
     else:
-        q = (hn @ p["wq"].to(hn.dtype)).reshape(b, s, cfg.n_heads,
-                                                cfg.head_dim)
+        q = tp.col_full(hn, p["wq"]).reshape(b, s, cfg.n_heads,
+                                             cfg.head_dim)
         k, v = (t.to(hn.dtype) for t in kv)
-    o = flash_attention(q, k, v, causal=causal)
-    return o.reshape(b, s, -1) @ p["wo"].to(hn.dtype), k, v
+    ax = tp.axis_of(p["wq"], p["wo"])
+    ql, kl, vl, ax_o = local_heads(q, k, v, ax)
+    o = flash_attention(ql, kl, vl, causal=causal)
+    return tp.row(o.reshape(b, s, -1), p["wo"], ax_o, sp), k, v
+
+
+def local_heads(q, k, v, ax):
+    """(q, k, v, axis) of the heads this rank computes: where the model
+    axis divides Hq, its contiguous block of q heads with exactly the KV
+    heads they read (so that the kernel's group mapping ``h // (Hq/Hkv)``
+    stays right: a whole number of groups, one shared KV head, or else
+    each head's KV head repeated), and the axis; otherwise every head and
+    None."""
+    hq, hkv = q.shape[2], k.shape[2]
+    if ax is None or hq % ax.size:
+        return q, k, v, None
+    n, g = hq // ax.size, hq // hkv
+    h0 = ax.rank * n
+    if n % g == 0 or g % n == 0:
+        kv = slice(h0 // g, h0 // g + max(1, n // g))
+        k, v = k[:, :, kv], v[:, :, kv]
+    else:
+        idx = torch.arange(h0, h0 + n, device=q.device) // g
+        k, v = k[:, :, idx], v[:, :, idx]
+    return (q[:, :, h0:h0 + n].contiguous(), k.contiguous(), v.contiguous(),
+            ax)
 
 
 def stack_kv(ks, vs, max_len: Optional[int]):
@@ -339,7 +373,7 @@ def attn_decode_forward(p: Params, x, cfg: ModelConfig, cache_k, cache_v,
         cache_v[:, at] = v[:, 0].to(cache_v.dtype)
     o = attention_decode(q, cache_k.to(x.dtype), cache_v.to(x.dtype),
                          cache_len + 1, seq)
-    return o.reshape(b, 1, -1) @ p["wo"].to(x.dtype)
+    return tp.row(o.reshape(b, 1, -1), p["wo"])
 
 
 def decode_inputs(cache, tokens):
@@ -388,15 +422,22 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, pdt,
     }
 
 
-def mlp_forward(p: Params, x):
-    cdt = x.dtype
-    h = F.silu(x @ p["wg"].to(cdt)) * (x @ p["wi"].to(cdt))
-    return h @ p["wo"].to(cdt)
+def mlp_forward(p: Params, x, sp=None):
+    """SwiGLU MLP of ``x`` [B,S,d]: ``wg``/``wi`` column-parallel on the
+    model axis, the gate and the activation on the rank's own ``d_ff``
+    columns, ``wo`` row-parallel (``distributed.tp``); with ``sp`` the
+    output is the rank's block of the sequence."""
+    g, ax = tp.col(x, p["wg"])
+    u, ax_u = tp.col(x, p["wi"])
+    if ax_u != ax:                       # one cut, the other whole
+        g, u, ax = tp.gather(g, -1, ax), tp.gather(u, -1, ax_u), None
+    return tp.row(F.silu(g) * u, p["wo"], ax, sp)
 
 
-def mlp_residual(p: Params, ln, x, eps: float):
-    """``x`` plus the MLP of its RMS norm (weight ``ln``)."""
-    return x + mlp_forward(p, rms_norm(x, ln, eps))
+def mlp_residual(p: Params, ln, x, eps: float, sp=None):
+    """``x`` plus the MLP of its RMS norm (weight ``ln``); with ``sp``
+    ``x`` is the rank's block of a sequence-parallel residual."""
+    return x + mlp_forward(p, tp.gather_seq(rms_norm(x, ln, eps), sp), sp)
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, pdt) -> Params:
@@ -429,19 +470,45 @@ def moe_route(p: Params, x, cfg: ModelConfig):
 
 
 def _experts(p: Params, xg, cdt):
-    """SwiGLU of every expert on its own rows: xg [G,E,C,d] -> [G,E,C,d]
-    (expert weights that are DTensors gathered first)."""
-    wg, wi, wo = (shd.full(p[n]).to(cdt) for n in ("wg", "wi", "wo"))
+    """SwiGLU of every expert on its own rows: xg [G,E,C,d] -> [G,E,C,d].
+    Expert weights cut over the experts on the model axis (expert
+    parallelism's layout, met by a decode step or a prefill whose shapes
+    do not tile the mesh) run this rank's experts on their buffers and
+    all-gather the outputs over the experts (exact: one rank computes
+    each expert), as GSPMD partitions the reference's ``expert_in`` /
+    ``expert_out`` constraints; other DTensor expert weights are
+    gathered first."""
+    ax = tp.axis_of(p["wg"])
+    parts = [tp.part(p[n]) for n in ("wg", "wi", "wo")]
+    if ax is not None and all(d == 0 for _, d, _ in parts):
+        wg, wi, wo = (w.to(cdt) for w, _, _ in parts)
+        xg = tp.block(xg, 1, ax)
+    else:
+        wg, wi, wo = (shd.full(p[n]).to(cdt) for n in ("wg", "wi", "wo"))
+        ax = None
     h = torch.einsum("gecd,edf->gecf", xg, wg)
     u = torch.einsum("gecd,edf->gecf", xg, wi)
-    return torch.einsum("gecf,efd->gecd", F.silu(h) * u, wo)
+    return tp.gather(torch.einsum("gecf,efd->gecd", F.silu(h) * u, wo), 1,
+                     ax)
 
 
-def moe_forward(p: Params, x, cfg: ModelConfig):
+def moe_forward(p: Params, x, cfg: ModelConfig, sp=None):
     """Top-k MoE FFN.  x: [B,S,d] -> [B,S,d]; ``cfg.moe_mode`` ``dense``
     (every expert computes every token, combined with the sparse gate
     weights: the correctness oracle) or ``dispatch`` (sort-based capacity
-    dispatch over ``moe_groups`` groups of the sequence)."""
+    dispatch over ``moe_groups`` groups of the sequence).  With ``sp``
+    ``x`` is the rank's block of a sequence-parallel residual, which the
+    expert-parallel path takes as its ``shard_map`` does."""
+    if sp is not None:
+        rules = shd.current_rules()
+        if cfg.moe_mode != "dense":
+            topw, topi = moe_route(p, x, cfg)
+            out = _moe_shardmap(p, x, topi, topw.to(x.dtype), cfg, rules,
+                                seq_local=True)
+            if out is not None:
+                return out
+        return tp.block(moe_forward(p, tp.gather_seq(x, sp), cfg), 1,
+                        sp).contiguous()
     b, s, d = x.shape
     e, k = cfg.n_experts_padded, cfg.topk
     cdt = x.dtype
@@ -530,9 +597,12 @@ def _all_to_all(x, group):
     return out
 
 
-def _moe_shardmap(p: Params, x, topi, topw, cfg: ModelConfig, rules):
+def _moe_shardmap(p: Params, x, topi, topw, cfg: ModelConfig, rules,
+                  seq_local: bool = False):
     """Explicit EP over (data axes x model); None when the shapes do not
-    tile the mesh (the caller takes the pure path)."""
+    tile the mesh (the caller takes the pure path).  ``seq_local``: ``x``
+    already holds this rank's block of the sequence (a sequence-parallel
+    residual, the reference's ``in_specs`` ``P(dp, model, None)``)."""
     from torch.distributed.tensor import DTensor
 
     b, s, d = x.shape
@@ -543,18 +613,19 @@ def _moe_shardmap(p: Params, x, topi, topw, cfg: ModelConfig, rules):
     dp_size = 1 if rules.local_batch else shd.mesh_size(mesh, rules.dp)
     experts = [p[n] for n in ("wg", "wi", "wo")]
     ep = shd.placements((maxis, None, None), mesh)
-    if b % dp_size or s % m or e % m or not all(
+    if b % dp_size or (s % m and not seq_local) or e % m or not all(
             isinstance(w, DTensor) and tuple(w.placements) == ep
             for w in experts):
         return None
-    t_loc = (b // dp_size) * (s // m)
+    t_loc = (b // dp_size) * (s if seq_local else s // m)
     cap = max(4, int(math.ceil(t_loc * k / e * cfg.capacity_factor)))
     e_loc = e // m
     cdt = x.dtype
-    blk = shd.placements((None if rules.local_batch else rules.dp, maxis,
-                          None), mesh)
+    blk = shd.placements((None if rules.local_batch else rules.dp,
+                          None if seq_local else maxis, None), mesh)
     # this rank's block of tokens (batch over the data axes, sequence over
-    # the model axis), cut from the replicated activations
+    # the model axis), cut from the replicated activations (the sequence
+    # already cut when ``seq_local``)
     xl, twl = shd.scatter(x, mesh, blk), shd.scatter(topw, mesh, blk)
     til = shd.local_slice(topi, mesh, blk)
     bl, sl = xl.shape[:2]

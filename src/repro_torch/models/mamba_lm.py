@@ -10,10 +10,13 @@ run the differentiable ``ssm.ssd_chunked`` instead, each block under
 ``transformer._remat``, and reach no kernel.
 
 On a device mesh the parameters are DTensors: ``forward`` and ``loss``
-gather them at their entry (``distributed.sharding.unshard``, an
-all-gather of each sharded parameter, the embedding table included) and
-run the blocks on plain tensors; activations stay replicated, so the
-reference's ``shard_activation`` calls are left out.
+gather them at their entry (``distributed.sharding.unshard``) and run
+the blocks on plain tensors.  ``prefill`` and ``decode_step`` compute
+tensor-parallel over ``model`` on the parameters' shards
+(``distributed.tp``; ``models.ssm.mamba_forward``), the prefill's
+residual sequence-parallel under mesh rules. The prefill's cache
+holds the rank's SSM heads and conv channels (``tp.lay_cache``), as
+the reference's ``cache_shardings`` lays them out.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import tp
 from repro_torch.distributed.sharding import unshard
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
@@ -59,11 +63,13 @@ class Mamba2LM:
             else params["unembed"]
 
     def _embed(self, params, tokens):
-        return params["embed"][tokens].to(self.cdt)
+        return tp.embed(params["embed"], tokens, self.cdt)
 
     def _logits(self, params, x):
         x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        return (x @ self._unembed(params).to(self.cdt)).to(F32)
+        if self.cfg.tie_embeddings:
+            return tp.logits(x, params["embed"], 0)
+        return tp.logits(x, params["unembed"], 1)
 
     def _body(self, params, batch):
         """Every block (``ssd_chunked``, each under ``_remat``)."""
@@ -118,18 +124,21 @@ class Mamba2LM:
         """Last-token logits [B, V] and the per-layer SSD states and conv
         histories."""
         cfg = self.cfg
+        mesh = tp.mesh_of(params)
+        params = tp.localize(params)
         x = self._embed(params, batch["tokens"])
+        sp = tp.seq_axis(x.shape[1])
+        x = tp.block(x, 1, sp)
         states, convs = [], []
         for lp in params["layers"]:
             y, st, conv = ssm.mamba_forward(
-                lp["m"], L.rms_norm(x, lp["ln"], cfg.norm_eps), cfg,
-                return_cache=True)
+                lp["m"], tp.gather_seq(L.rms_norm(x, lp["ln"], cfg.norm_eps),
+                                       sp), cfg, return_cache=True, sp=sp)
             x = x + y
             states.append(st)
             convs.append(conv)
-        logits = self._logits(params, x[:, -1:])[:, 0]
-        return logits, {"state": torch.stack(states),
-                        "conv": torch.stack(convs)}
+        logits = self._logits(params, tp.last_token(x, sp))[:, 0]
+        return logits, ssm_cache(cfg, mesh, states, convs)
 
     def decode_step(self, params, cache, tokens) -> Tuple[torch.Tensor,
                                                           Params]:
@@ -138,6 +147,7 @@ class Mamba2LM:
         and tokens laid out by ``launch.specs`` decode each rank's rows
         (``layers.decode_inputs``)."""
         cfg = self.cfg
+        params = tp.localize(params)
         loc, tokens, _, wrap = L.decode_inputs(cache, tokens)
         x = self._embed(params, tokens)[:, None]
         for i, lp in enumerate(params["layers"]):
@@ -148,3 +158,14 @@ class Mamba2LM:
             loc["state"][i] = st
             loc["conv"][i] = conv
         return wrap(self._logits(params, x)[:, 0]), cache
+
+
+def ssm_cache(cfg: ModelConfig, mesh, states, convs) -> Params:
+    """A prefill's per-layer SSD states and conv histories stacked, each
+    laid out on ``mesh`` as ``launch.specs.cache_shardings`` lays it out
+    (``distributed.tp.lay_cache``: its heads and channels on the model
+    axis, the batch on the data axes)."""
+    return {"state": tp.lay_cache(torch.stack(states), mesh, 2,
+                                  cfg.ssm_heads),
+            "conv": tp.lay_cache(torch.stack(convs), mesh, 3,
+                                 cfg.d_inner + 2 * cfg.ssm_state)}

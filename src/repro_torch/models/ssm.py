@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tp
 from repro_torch.kernels.ssd import ssd_scan
 from repro_torch.models.layers import dense_init, gated_rms_norm, zeros
 
@@ -147,29 +148,67 @@ def _causal_conv(x, w, b):
     return out + b
 
 
+def _heads(p: Params):
+    """(A_log, D, dt_bias, axis) of the SSM heads this rank computes: its
+    block of them where the model axis cuts ``A_log`` (and the rules cut
+    ``D`` and ``dt_bias`` alike, all three [H]), with the axis; else every
+    head and None."""
+    (a, dim, ax), (d, _, _), (dtb, _, _) = (tp.part(p[n]) for n in
+                                            ("A_log", "D", "dt_bias"))
+    return a, d, dtb, (ax if dim is not None else None)
+
+
+def _gated_norm(y, z, w, eps: float, y_ax):
+    """``gated_rms_norm(y, z, w)`` over the whole ``d_inner``: with ``y_ax``
+    ``y`` and ``z`` are the rank's block of it.  Returns (out, axis of
+    out's block or None): a norm weight cut over the model axis gives a
+    block of a whole ``y``."""
+    wl, w_dim, w_ax = tp.part(w)
+    if y_ax is None and w_dim is not None:
+        y, z, y_ax = tp.block(y, -1, w_ax), tp.block(z, -1, w_ax), w_ax
+    elif y_ax is not None and w_dim is None:
+        wl = tp.block(wl, 0, y_ax)
+    return gated_rms_norm(y, z, wl, eps, y_ax), y_ax
+
+
 def mamba_forward(p: Params, x, cfg: ModelConfig, *, initial_state=None,
                   conv_init=None, return_cache: bool = False,
-                  kernel: bool = True):
+                  kernel: bool = True, sp=None):
     """Full-sequence Mamba2 block.  x: [B,S,d] -> [B,S,d] (and, with
     ``return_cache``, the final SSD state and the conv history).  The SSD
     runs through the kernel (``ssd_scan``) unless ``kernel`` is False,
-    then through the differentiable ``ssd_chunked``."""
+    then through the differentiable ``ssd_chunked``.
+
+    On the model axis (``distributed.tp``): the in-projection's columns
+    are gathered (a rank's column block mixes z, x, B, C and dt, whose
+    order checkpoints fix); the depthwise conv runs on the rank's block
+    of ``conv_dim`` channels where ``conv_w`` is cut (its conv history
+    that block, the reference cache's ``(.., "model")``), and its output
+    is gathered; the scan runs on the rank's heads where ``A_log`` is cut
+    (the state those heads), the gated norm over the whole ``d_inner``
+    (its sum of squares all-reduced), and ``out_proj`` is row-parallel;
+    with ``sp`` (``x`` the whole sequence of a sequence-parallel
+    residual) the output is the rank's block of the sequence."""
     b, s, d = x.shape
     di, n, nh, ph = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
     cdt = x.dtype
-    zxbcdt = x @ p["in_proj"].to(cdt)
+    zxbcdt = tp.col_full(x, p["in_proj"])
     z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * n, nh], dim=-1)
-    conv_w, conv_b = p["conv_w"].to(cdt), p["conv_b"].to(cdt)
+    cw, c_dim, c_ax = tp.part(p["conv_w"])
+    c_ax = c_ax if c_dim is not None else None
+    xbc = tp.block(xbc, -1, c_ax)
+    conv_w, conv_b = cw.to(cdt), tp.part(p["conv_b"])[0].to(cdt)
     if conv_init is not None:
         xbc_in = torch.cat([conv_init.to(cdt), xbc], dim=1)
         xbc_conv = _causal_conv(xbc_in, conv_w, conv_b)[:, conv_init.shape[1]:]
     else:
         xbc_conv = _causal_conv(xbc, conv_w, conv_b)
-    xbc_conv = F.silu(xbc_conv)
+    xbc_conv = tp.gather(F.silu(xbc_conv), -1, c_ax)
     xs, B, C = torch.split(xbc_conv, [di, n, n], dim=-1)
-    dt = F.softplus(dt_raw.to(F32) + p["dt_bias"])              # [B,S,H]
-    A = -torch.exp(p["A_log"])                                  # [H]
-    xh = xs.reshape(b, s, nh, ph)
+    A_log, D, dt_bias, h_ax = _heads(p)
+    dt = F.softplus(tp.block(dt_raw, -1, h_ax).to(F32) + dt_bias)  # [B,S,H]
+    A = -torch.exp(A_log)                                       # [H]
+    xh = tp.block(xs.reshape(b, s, nh, ph), 2, h_ax)
     if kernel:
         y, final_state = ssd_scan(xh.contiguous(), dt.contiguous(), A,
                                   B.contiguous(), C.contiguous(),
@@ -179,10 +218,11 @@ def mamba_forward(p: Params, x, cfg: ModelConfig, *, initial_state=None,
         y, final_state = ssd_chunked(xh, dt, A, B, C,
                                      chunk=min(cfg.ssm_chunk, s),
                                      initial_state=initial_state)
-    y = y + xh * p["D"].to(cdt)[:, None]
-    y = y.reshape(b, s, di)
-    y = gated_rms_norm(y, z, p["norm_w"], cfg.norm_eps)
-    out = y @ p["out_proj"].to(cdt)
+    y = y + xh * D.to(cdt)[:, None]
+    y = y.reshape(b, s, xh.shape[2] * ph)
+    y, y_ax = _gated_norm(y, tp.block(z, -1, h_ax), p["norm_w"],
+                          cfg.norm_eps, h_ax)
+    out = tp.row(y, p["out_proj"], y_ax, sp)
     if return_cache:
         w1 = cfg.ssm_conv - 1
         hist = xbc if conv_init is None else \
@@ -200,21 +240,40 @@ def mamba_forward(p: Params, x, cfg: ModelConfig, *, initial_state=None,
 def mamba_step(p: Params, x, cfg: ModelConfig, state, conv_cache):
     """One-token Mamba2 step.  x: [B,1,d]; state: [B,H,P,N] float32;
     conv_cache: [B,W-1,conv_dim].  Returns (out [B,1,d], new_state,
-    new_conv_cache)."""
+    new_conv_cache).  On the model axis as :func:`mamba_forward`: the
+    state holds the rank's heads and the conv history its channels where
+    the parameters are cut so (the reference's ``cache_shardings``)."""
     b = x.shape[0]
     di, n, nh, ph = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
     cdt = x.dtype
-    zxbcdt = x[:, 0] @ p["in_proj"].to(cdt)
+    zxbcdt = tp.col_full(x[:, 0], p["in_proj"])
     z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * n, nh], dim=-1)
+    cw, c_dim, c_ax = tp.part(p["conv_w"])
+    c_ax = c_ax if c_dim is not None else None
+    xbc = tp.block(xbc, -1, c_ax)
+    _expect(conv_cache, -1, xbc.shape[-1], "conv")
     window = torch.cat([conv_cache.to(cdt), xbc[:, None]], dim=1)  # [B,W,cd]
-    conv_out = torch.einsum("bwc,wc->bc", window, p["conv_w"].to(cdt)) + \
-        p["conv_b"].to(cdt)
-    conv_out = F.silu(conv_out)
+    conv_out = torch.einsum("bwc,wc->bc", window, cw.to(cdt)) + \
+        tp.part(p["conv_b"])[0].to(cdt)
+    conv_out = tp.gather(F.silu(conv_out), -1, c_ax)
     xs, B, C = torch.split(conv_out, [di, n, n], dim=-1)
-    dt = F.softplus(dt_raw.to(F32) + p["dt_bias"])               # [B,H]
-    A = -torch.exp(p["A_log"])
-    state, y = ssd_step(state, xs.reshape(b, nh, ph), dt, A, B, C)
-    y = y + xs.reshape(b, nh, ph) * p["D"].to(cdt)[:, None]
-    y = gated_rms_norm(y.reshape(b, di), z, p["norm_w"], cfg.norm_eps)
-    out = (y @ p["out_proj"].to(cdt))[:, None]
+    A_log, D, dt_bias, h_ax = _heads(p)
+    dt = F.softplus(tp.block(dt_raw, -1, h_ax).to(F32) + dt_bias)  # [B,H]
+    A = -torch.exp(A_log)
+    xh = tp.block(xs.reshape(b, nh, ph), 1, h_ax)
+    _expect(state, 1, xh.shape[1], "state")
+    state, y = ssd_step(state, xh, dt, A, B, C)
+    y = y + xh * D.to(cdt)[:, None]
+    y, y_ax = _gated_norm(y.reshape(b, -1), tp.block(z, -1, h_ax),
+                          p["norm_w"], cfg.norm_eps, h_ax)
+    out = tp.row(y, p["out_proj"], y_ax)[:, None]
     return out, state, window[:, 1:]
+
+
+def _expect(cache, dim: int, size: int, name: str) -> None:
+    if cache.shape[dim] != size:
+        raise ValueError(
+            f"the decode cache's {name} holds {cache.shape[dim]} along dim "
+            f"{dim}, the parameters' layout gives this rank {size}: lay the "
+            f"cache out by launch.specs.cache_shardings for parameters "
+            f"laid out by distributed.sharding.param_shardings")

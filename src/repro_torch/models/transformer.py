@@ -31,17 +31,21 @@ cross-entropy one sequence chunk at a time, each chunk checkpointed, as
 On a device mesh (``distributed.sharding``; ``launch.train --mesh
 elastic``) the parameters are DTensors.  ``forward`` and ``loss`` gather
 each at their entry (``sharding.unshard``: an all-gather of every
-sharded parameter, the embedding table's too, as GSPMD would insert one
-before a gather from a ``model``-sharded table; the backward takes the
-local slice) and run the blocks on plain tensors; the MoE expert weights
-stay sharded for expert parallelism (``layers._moe_shardmap``) and are
-gathered in ``layers._experts`` when the pure path runs.  Activations
-stay replicated, so the reference's ``shard_activation`` calls between
-blocks have nothing to lay out and are left out.  A batch laid out over
-the data axes gives each rank its rows (``optim.loss_and_grads`` passes
-the global token ``count`` to ``loss``), and a decode cache laid out by
-``launch.specs`` attends over the rank's slice of the KV sequence
-(``layers.decode_inputs``).
+sharded parameter, the embedding table's too; the backward takes the
+local slice) and run the blocks on plain tensors, the MoE expert weights
+kept sharded for expert parallelism (``layers._moe_shardmap``).
+``prefill`` and ``decode_step`` compute tensor-parallel over ``model``
+on the parameters' shards instead (``distributed.tp``, as the
+reference's GSPMD does from the same specs): the embedding and head
+vocab-parallel, q/k/v and the MLP's gate column-parallel, ``wo``
+row-parallel (flash on the rank's heads where the model axis divides
+Hq), and under mesh rules with ``seq_parallel`` the prefill's residual
+sequence-parallel between blocks (the reference's ``shard_activation``
+sites), the MoE block taking its sequence block as expert parallelism's
+input.  A batch laid out over the data axes gives each rank its rows
+(``optim.loss_and_grads`` passes the global token ``count`` to
+``loss``), and a decode cache laid out by ``launch.specs`` attends over
+the rank's slice of the KV sequence (``layers.decode_inputs``).
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ from torch.utils.checkpoint import (checkpoint,
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import tp
 from repro_torch.distributed.sharding import is_moe_expert, unshard
 from repro_torch.models import layers as L
 
@@ -172,7 +177,7 @@ class TransformerLM:
         return params["unembed"]
 
     def _embed(self, params, tokens):
-        return params["embed"][tokens].to(self.cdt)
+        return tp.embed(params["embed"], tokens, self.cdt)
 
     def _embed_inputs(self, params, batch):
         """Token embeddings [B,S,d]; for ``vlm`` the projected
@@ -184,14 +189,18 @@ class TransformerLM:
             x = torch.cat([patches, x], dim=1)
         return x
 
-    def _ffn(self, lp, x):
+    def _ffn(self, lp, hn, sp=None):
+        """The FFN of the normed residual ``hn``, the rank's block of the
+        sequence with ``sp`` (MoE takes it so; the MLP gathers it)."""
         if self.cfg.family == "moe":
-            return L.moe_forward(lp["moe"], x, self.cfg)
-        return L.mlp_forward(lp["mlp"], x)
+            return L.moe_forward(lp["moe"], hn, self.cfg, sp)
+        return L.mlp_forward(lp["mlp"], tp.gather_seq(hn, sp), sp)
 
     def _logits(self, params, x):
         x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        return (x @ self._unembed(params).to(self.cdt)).to(F32)
+        if self.cfg.tie_embeddings:
+            return tp.logits(x, params["embed"], 0)
+        return tp.logits(x, params["unembed"], 1)
 
     # ---------------- forward / train ----------------
     def _body(self, params, x):
@@ -238,19 +247,22 @@ class TransformerLM:
         the KV cache (padded to ``max_len`` positions; a ``vlm`` prompt
         holds its patches too, so its ``max_len`` must count them)."""
         cfg = self.cfg
+        params = tp.localize(params)
         x = self._embed_inputs(params, batch)
         s = x.shape[1]
+        sp = tp.seq_axis(s)
+        x = tp.block(x, 1, sp)
         positions = torch.arange(s, device=x.device)[None, :]
         ks, vs = [], []
         for lp in params["layers"]:
-            o, k, v = L.flash_attn(lp["attn"],
-                                   L.rms_norm(x, lp["ln1"], cfg.norm_eps),
-                                   cfg, positions, causal=True)
+            hn = tp.gather_seq(L.rms_norm(x, lp["ln1"], cfg.norm_eps), sp)
+            o, k, v = L.flash_attn(lp["attn"], hn, cfg, positions,
+                                   causal=True, sp=sp)
             x = x + o
-            x = x + self._ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps))
+            x = x + self._ffn(lp, L.rms_norm(x, lp["ln2"], cfg.norm_eps), sp)
             ks.append(k)
             vs.append(v)
-        logits = self._logits(params, x[:, -1:])[:, 0]
+        logits = self._logits(params, tp.last_token(x, sp))[:, 0]
         k_all, v_all = L.stack_kv(ks, vs, max_len)
         if cfg.kv_quant:
             kq, k_s = _kv_quantize(k_all)
@@ -287,6 +299,7 @@ class TransformerLM:
         against its slice of the KV sequence (``layers.decode_inputs``);
         the logits then come back laid out as the tokens."""
         cfg = self.cfg
+        params = tp.localize(params)
         loc, tokens, seq, wrap = L.decode_inputs(cache, tokens)
         x = self._embed(params, tokens)[:, None]                  # [B,1,d]
         clen = int(cache["len"])
@@ -321,7 +334,7 @@ def _attn_decode_q(p, x, cfg: ModelConfig, cache, i: int, clen: int,
     k_full = _kv_dequantize(cache["k"][i], cache["k_s"][i], x.dtype)
     v_full = _kv_dequantize(cache["v"][i], cache["v_s"][i], x.dtype)
     o = L.attention_decode(q, k_full, v_full, clen + 1, seq)
-    return o.reshape(b, 1, -1) @ p["wo"].to(x.dtype)
+    return tp.row(o.reshape(b, 1, -1), p["wo"])
 
 
 def _kv_quantize(x):

@@ -139,9 +139,9 @@ def _attn_tp(p, x, cfg, positions, *, causal=True, kv_override=None):
     return _Reduce.apply(_SliceCols.apply(o) @ p["wo"].to(x.dtype)[rows])
 
 
-def _mlp_tp(p, x):
+def _mlp_tp(p, x, sp=None):
     """``layers.mlp_forward`` with column-parallel ``wg``/``wi`` and a
-    row-parallel ``wo``."""
+    row-parallel ``wo`` (the training path: ``sp`` is None)."""
     cdt = x.dtype
     cols = _block(p["wg"].shape[1])
     xf = _Copy.apply(x)

@@ -19,7 +19,8 @@ penalty grid, a store round trip) equals the CPU's field for field.  The
 dry run's per-device step traced on the meta device counts the card's
 kernel launches and the same FLOPs.  Two gloo ranks on the card run the
 data-parallel ZeRO-1 step and the sequence-sharded decode as world 1
-does.
+does, and the tensor-parallel prefill and decode of the reduced dense and
+ssm configs.
 """
 import dataclasses
 
@@ -716,7 +717,7 @@ def _data_axes_card(card, mesh_dp=None, mesh_seq=None):
         _, cache = model.prefill(params, {"tokens": prompt}, 32)
         shape = ShapeConfig("t", 32, 2, "decode")
         if mesh_seq is not None:
-            cache = S.lay_out(cache, mesh_seq, S.cache_layout(
+            cache = S.lay_out(cache, mesh_seq, S.cache_shardings(
                 mesh_seq, dcfg, cache, shape))
         out = []
         for i in range(8):
@@ -763,3 +764,70 @@ def test_data_axes_two_ranks_on_card_equal_world_one(card, tmp_path):
         want = w_logits[case]
         torch.testing.assert_close(logits[case], want, rtol=0,
                                    atol=tol * float(want.abs().max()))
+
+
+def _tp_serve(card, arch, mesh=None):
+    """Prefill (12 tokens, batch 2) and four decode steps of ``arch``'s
+    reduced config on ``card``, weights drawn from seed 3: on ``mesh``
+    with the parameters laid out by ``param_shardings`` (tensor-parallel
+    blocks), the cache by ``cache_shardings``; world 1 when None.
+    Returns (prefill logits, every step's logits) on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import specs as S
+    from repro_torch.models import get_model, init_params
+    cfg = get_config(arch).reduced()
+    model = get_model(cfg)
+    params = init_params(cfg, torch.Generator(card).manual_seed(3), card)
+    g = torch.Generator(card).manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab, (2, 12), device=card, generator=g)
+    toks = torch.randint(0, cfg.vocab, (4, 2), device=card, generator=g)
+    shape = ShapeConfig("t", 32, 2, "decode")
+    rules = None
+    if mesh is not None:
+        params = sh.distribute(params, mesh, sh.param_shardings(
+            mesh, params, cfg.tie_embeddings))
+        rules = S.make_rules(mesh, cfg)
+    with sh.activation_rules(rules):
+        kw = {} if cfg.family == "ssm" else {"max_len": 32}
+        lg, cache = model.prefill(params, {"tokens": prompt}, **kw)
+        if mesh is not None:
+            cache = S.lay_out(cache, mesh, S.cache_shardings(mesh, cfg,
+                                                             cache, shape))
+        out = []
+        for tok in toks:
+            if mesh is not None:
+                tok = S.lay_out(tok, mesh, S.token_shardings(mesh, shape))
+            step, cache = model.decode_step(params, cache, tok)
+            out.append(sh.full(step).cpu())
+    return lg.cpu(), torch.stack(out)
+
+
+def _tp_world(rank, world, out_dir):
+    from repro_torch.launch.mesh import make_mesh
+    card = torch.device("cuda", 0)
+    mesh = make_mesh((1, 2), ("data", "model"))
+    res = {arch: _tp_serve(card, arch, mesh)
+           for arch in ("smollm-135m", "mamba2-370m")}
+    if rank == 0:
+        torch.save(res, f"{out_dir}/tp.pt")
+
+
+@pytest.mark.cuda
+def test_tp_serving_two_ranks_on_card_equal_world_one(card, tmp_path):
+    """Two gloo ranks on the card, (1, 2): the reduced smollm-135m and
+    mamba2-370m prefill and decode with tensor-parallel blocks (column-
+    and row-parallel products, the vocab-parallel embedding and head, the
+    SSM heads on ``model``, sequence parallelism under the rules) against
+    world 1 on the card: float32 logits within 1e-5 of the largest,
+    argmax equal."""
+    from repro_torch.launch.mesh import run_world
+    run_world(_tp_world, 2, tmp_path / "store", args=(str(tmp_path),),
+              device="cuda", backend="gloo", timeout=300)
+    res = torch.load(tmp_path / "tp.pt")
+    for arch, got in res.items():
+        for a, w in zip(got, _tp_serve(card, arch)):
+            torch.testing.assert_close(a, w, rtol=0,
+                                       atol=1e-5 * float(w.abs().max()))
+            assert torch.equal(a.argmax(-1), w.argmax(-1)), arch

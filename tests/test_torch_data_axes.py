@@ -322,8 +322,8 @@ def _decode(case, data, mesh, rows):
              for k, v in cache.items()}
     shape = ShapeConfig("t", MAX_LEN, rows, "decode")
     if mesh is not None:
-        cache = S.lay_out(cache, mesh, S.cache_layout(mesh, cfg, cache,
-                                                      shape))
+        cache = S.lay_out(cache, mesh, S.cache_shardings(mesh, cfg, cache,
+                                                         shape))
     out = []
     for t in toks[:, :rows]:
         tokens = torch.from_numpy(t).long()
@@ -611,8 +611,8 @@ def test_dry_run_records_the_data_axes(shape_name, tmp_path):
     dep = rec["departures"]
     assert all(dep[k] is True for k in ("zero1", "expert_parallel",
                                         "kv_cache_sequence_sharded",
-                                        "dp_gradient_reduce"))
-    assert "SSM decode state" in dep["replicated_blocks"]
+                                        "dp_gradient_reduce", "tp_serving"))
+    assert dep["replicated_blocks"].startswith("train step:")
     coll = rec["collectives"]
     cfg, shape = get_config(arch), get_shape(shape_name)
     if shape.kind == "train":
@@ -629,12 +629,21 @@ def test_dry_run_records_the_data_axes(shape_name, tmp_path):
     elif shape.kind == "decode":
         # per layer, row and mesh dim cutting the sequence (model; at
         # B = 1 data and model): the MAX and SUM statistics [Hq] and the
-        # partial output [Hq, D], float32
+        # partial output [Hq, D], float32; and the tensor-parallel float32
+        # sums over model of each row's [d]: the tied embedding's lookup,
+        # each layer's attention and MLP outputs
         rows, dims = rec["per_device_batch"], 2 if shape.global_batch == 1 \
             else 1
         assert coll["all-reduce"] == (dims * cfg.n_layers * rows
                                       * cfg.n_heads
-                                      * (4 + 4 + 4 * cfg.head_dim))
+                                      * (4 + 4 + 4 * cfg.head_dim)
+                                      + rows * cfg.d_model * 4
+                                      * (2 * cfg.n_layers + 1))
         assert coll["reduce-scatter"] == 0
     else:
-        assert coll["reduce-scatter"] == coll["all-reduce"] == 0
+        # the tied embedding's lookup summed over model, the row-parallel
+        # products reduce-scattered over the sequence (sequence parallel)
+        tokens = rec["per_device_batch"] * shape.seq_len
+        assert coll["all-reduce"] == tokens * cfg.d_model * 4
+        assert coll["reduce-scatter"] == (2 * cfg.n_layers * tokens
+                                          * cfg.d_model * 4)

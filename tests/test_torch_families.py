@@ -411,22 +411,43 @@ def test_vlm_cache_covers_patches():
         _close(after[name], jafter[name])
 
 
-@pytest.mark.parametrize("arch", ["internvl2-1b", "zamba2-7b",
-                                  "seamless-m4t-medium"])
+#: the bf16 prefills held to JAX; dense and ssm guard their argmax against
+#: near-ties (ROADMAP C-gap-1 found a mamba2-370m row at S = 40 whose top
+#: two JAX logits lie one bf16 ulp apart, 0.38086 and 0.37891)
+BF16_ARCHS = ["internvl2-1b", "zamba2-7b", "seamless-m4t-medium",
+              "smollm-135m", "mamba2-370m"]
+NEAR_TIE_GUARD = {"smollm-135m", "mamba2-370m"}
+
+
+@pytest.mark.parametrize("arch", BF16_ARCHS)
 @pytest.mark.parametrize("s", [24, 40])
 def test_bf16_prefill_close_to_jax(arch, s):
     """bf16 activations (float32 weights): the prefill's argmax equal to
-    JAX's, its logits within ``BF16_LOGIT_SHARE`` of the largest."""
+    JAX's, its logits within ``BF16_LOGIT_SHARE`` of the largest.  For
+    the dense and ssm families the argmax is compared on the rows whose
+    top-two JAX logits lie further apart than the measured error (a
+    near-tie may go either way); at least one row is compared."""
     cfg, model, params, jm, jparams = _setup(arch, (("dtype", "bfloat16"),))
     batch = _batch(cfg, 2, s, seed=s + 1)
-    (lg, _), (jlg, _) = _prefill_both(cfg, model, params, jm, jparams,
-                                      batch, _prompt_len(cfg, s) + 4)
+    if cfg.family == "ssm":     # Mamba2LM.prefill takes no max_len
+        lg, _ = model.prefill(params, _port_batch(cfg, batch))
+        jlg, _ = jm.prefill(jparams, _jax_batch(cfg, batch))
+    else:
+        (lg, _), (jlg, _) = _prefill_both(cfg, model, params, jm, jparams,
+                                          batch, _prompt_len(cfg, s) + 4)
     jlg = np.asarray(jlg)
     assert lg.dtype == torch.float32
-    np.testing.assert_array_equal(lg[:, :cfg.vocab].argmax(-1).numpy(),
-                                  jlg[:, :cfg.vocab].argmax(-1))
     np.testing.assert_allclose(lg.numpy(), jlg, rtol=0,
                                atol=BF16_LOGIT_SHARE * np.abs(jlg).max())
+    got, want = lg[:, :cfg.vocab].numpy(), jlg[:, :cfg.vocab]
+    rows = np.ones(len(want), bool)
+    if arch in NEAR_TIE_GUARD:
+        err = np.abs(got - want).max()
+        top2 = np.sort(want, -1)[:, -2:]
+        rows = top2[:, 1] - top2[:, 0] > err
+        assert rows.any()
+    np.testing.assert_array_equal(got.argmax(-1)[rows],
+                                  want.argmax(-1)[rows])
 
 
 def _serve_stats(text: str) -> dict:

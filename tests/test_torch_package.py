@@ -66,10 +66,12 @@ def test_port_imports_neither_jax_nor_reference():
                  "repro_torch.cachesim.tracefiles",
                  "repro_torch.cachesim.topology",
                  "repro_torch.tools.store_tool", "repro_torch.tree",
+                 "repro_torch.tools.bf16_drift",
                  "repro_torch.optim.adamw", "repro_torch.data.pipeline",
                  "repro_torch.checkpoint.ckpt",
                  "repro_torch.distributed.compression",
                  "repro_torch.distributed.ft", "repro_torch.launch.train",
+                 "repro_torch.distributed.tp",
                  "repro_torch.launch.specs", "repro_torch.launch.cost",
                  "repro_torch.launch.roofline", "repro_torch.launch.dryrun"):
         assert name in mods, name
