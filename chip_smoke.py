@@ -1985,6 +1985,23 @@ BF16_DEEP_SHARE = 0.08
 TP_BF16_SHARE = {"smollm-135m": BF16_LOGIT_SHARE,
                  "mamba2-370m": BF16_DEEP_SHARE}
 TP_ARCHS = tuple(TP_BF16_SHARE)
+#: (h8) tensor-parallel training on (1, 2) under the mesh's rules
+#: (sequence parallel): TP_ARCHS at their published widths, TPT_STEPS
+#: AdamW steps (h6's optimizer) of a TPT_BATCH x TPT_SEQ batch, weights
+#: and batch drawn from TPT_SEED, against world 1 from the same weights
+#: and batch.  float32 compute at the mesh's gates (losses MESH_TOL_H2,
+#: parameters MESH_PARAM_TOL); bf16 compute (the published configs'):
+#: the first step's loss and gradient, before clipping and AdamW, against
+#: the float32 witness (the same weights in float32 at world 1), the TP
+#: relative error at most TPT_WITNESS_FACTOR times world 1 bf16's own
+#: plus TPT_WITNESS_SLACK, both fixed before any run
+TPT_STEPS, TPT_BATCH, TPT_SEQ, TPT_SEED = 2, 2, 128, 24
+TPT_WITNESS_FACTOR, TPT_WITNESS_SLACK = 2.0, 1e-4
+#: (h2) bf16 losses of two ranks against (h1)'s: 2^-8 with a margin (the
+#: final-parameter gate moved to (h8)'s float32 case: AdamW's first step
+#: turns each flipped sign of a bf16 gradient into a whole step of the
+#: learning rate)
+MESH_TOL_H2_BF16 = 1e-2
 
 
 def _mesh_dir() -> Path:
@@ -2054,21 +2071,19 @@ def _mesh_train(root: Path, card: str) -> None:
     check(h2["mesh"] == {"data": 1, "model": 2} and len(peak1) == 1,
           f"h2 mesh {h2['mesh']}, rank-1 lines {peak1}")
     rel2 = _rel(h2["losses"], h1["losses"])
-    check(rel2 <= MESH_TOL_H2, f"h2 losses {h2['losses']} vs h1 "
-                               f"{h1['losses']}")
+    check(rel2 <= MESH_TOL_H2_BF16, f"h2 losses {h2['losses']} vs h1 "
+                                    f"{h1['losses']}")
     a, b = (_ckpt_arrays(root / t, MESH_STEPS) for t in ("h2", "h1"))
-    worst = 0.0
-    for k in b:
-        if k.startswith("params::"):
-            x, y = a[k].astype(np.float64), b[k].astype(np.float64)
-            check(np.allclose(x, y, rtol=MESH_PARAM_TOL, atol=MESH_PARAM_TOL),
-                  f"h2 {k}: max |diff| {np.abs(x - y).max()}")
-            worst = max(worst, float(np.abs(x - y).max()))
+    worst = max(float(np.abs(a[k].astype(np.float64) -
+                             b[k].astype(np.float64)).max())
+                for k in b if k.startswith("params::"))
     step_ms = 1e3 * sum(h2["step_s"][1:]) / (MESH_STEPS - 1)
-    print(f"[mesh h2] two ranks on card 0 over gloo, (1, 2) mesh: losses "
+    print(f"[mesh h2] two ranks on card 0 over gloo, (1, 2) mesh, "
+          f"tensor-parallel bf16 blocks (no rules, as the launcher): losses "
           f"{h2['losses']}, max relative difference to h1 {rel2!r} (tol "
-          f"{MESH_TOL_H2}); bit-equal {h2['losses'] == h1['losses']}; final "
-          f"params max |h2 - h1| {worst!r} (tol {MESH_PARAM_TOL}); "
+          f"{MESH_TOL_H2_BF16}); bit-equal {h2['losses'] == h1['losses']}; "
+          f"final params max |h2 - h1| {worst!r} (not gated: (h8) holds "
+          f"float32 to {MESH_PARAM_TOL}); "
           f"{step_ms:.1f} ms a step; peak memory a rank "
           f"[{h2['peak_memory_bytes']}, {peak1[0]}] bytes; {secs:.1f} s "
           f"with the processes' start ({card})")
@@ -2587,6 +2602,180 @@ def _mesh_tp(root: Path, card: str) -> None:
     print(f"[mesh h7] {secs:.1f} s with the processes' start ({card})")
 
 
+def _h8_batch(cfg):
+    """(h8)'s batch: TPT_BATCH rows of TPT_SEQ next-token pairs drawn on
+    the card from TPT_SEED + 1."""
+    import torch
+    toks = torch.randint(0, cfg.vocab, (TPT_BATCH, TPT_SEQ + 1),
+                         device="cuda", generator=torch.Generator(
+                             "cuda").manual_seed(TPT_SEED + 1))
+    return {"tokens": toks[:, :-1].contiguous(),
+            "labels": toks[:, 1:].contiguous()}
+
+
+def _h8_train(arch: str, dtype: str, steps: int, mesh=None):
+    """(h8) ``arch``'s published config (``dtype`` float32: float32
+    compute; bfloat16: as published) from weights drawn on the card from
+    TPT_SEED: the first step's loss and gradient (full, before clipping),
+    then ``steps`` AdamW steps, tensor-parallel on ``mesh`` under its
+    rules (world 1 when None).  Returns the numbers and, on rank 0, the
+    full first gradient and final parameters."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import specs as S
+    from repro_torch.models import get_model, init_params
+    from repro_torch.optim import (OptConfig, init_train_state,
+                                   loss_and_grads, make_train_step)
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(arch)
+    if dtype == "float32":
+        cfg = dataclasses.replace(cfg, dtype="float32")
+    model, ocfg = get_model(cfg), OptConfig(lr=DP_LR, warmup_steps=2,
+                                            total_steps=50)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(TPT_SEED),
+                         "cuda")
+    batch = _h8_batch(cfg)
+    state = init_train_state(params, ocfg)
+    rules = None
+    if mesh is not None:
+        state = S.lay_out(state, mesh, S.state_shardings(mesh, cfg, state))
+        rules = S.make_rules(mesh, cfg)
+    pbytes = sum(sh.local(x).numel() * sh.local(x).element_size()
+                 for x in tree_leaves(state["params"]))
+    step = make_train_step(model, ocfg)
+    losses, norms = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sh.activation_rules(rules):
+        (loss0, _), grads = loss_and_grads(model, state["params"], batch)
+        grads = [g.double() for g in tree_leaves(sh.unshard(grads))]
+        for _ in range(steps):
+            state, met = step(state, batch)
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+        final = [p.double() for p in tree_leaves(sh.unshard(state["params"]))]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return {"loss0": float(loss0), "losses": losses, "grad_norm": norms,
+            "param_bytes": pbytes, "secs": secs,
+            "peak": torch.cuda.max_memory_allocated() - base}, grads, final
+
+
+def _h8_world(rank, world, out_dir):
+    """(h8) on both ranks: the tensor-parallel runs; on rank 0 also world
+    1 (before each, so that rank 1 waits at the first collective).  Each
+    rank writes its parameter bytes and peak memory a run; rank 0 the
+    comparisons."""
+    import gc
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 2), ("data", "model"))
+    res, mine = [], {}
+
+    def rel(got, want) -> float:
+        num = sum(float((g - w).square().sum()) for g, w in zip(got, want))
+        den = sum(float(w.square().sum()) for w in want)
+        return (num / den) ** 0.5
+
+    for arch in TP_ARCHS:
+        out = {"arch": arch}
+        for dtype, steps in (("float32", TPT_STEPS), ("bfloat16", 0)):
+            if rank == 0:
+                one, g1, p1 = _h8_train(arch, dtype, steps)
+                gc.collect()
+                torch.cuda.empty_cache()
+            got, g2, p2 = _h8_train(arch, dtype, steps, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            mine[f"{arch} {dtype}"] = [got["param_bytes"], got["peak"]]
+            if rank != 0:
+                continue
+            if dtype == "float32":
+                witness = (one["loss0"], g1)
+                out["float32"] = {
+                    "tp": got, "world1": one,
+                    "loss_rel": _rel(got["losses"], one["losses"]),
+                    "param_diff": max(float((a - b).abs().max())
+                                      for a, b in zip(p2, p1)),
+                    "params_close": all(torch.allclose(
+                        a, b, rtol=MESH_PARAM_TOL, atol=MESH_PARAM_TOL)
+                        for a, b in zip(p2, p1)),
+                    "grad_rel_world1": rel(g2, g1)}
+            else:
+                lw, gw = witness
+                out["bfloat16"] = {
+                    "tp": got, "world1": one,
+                    "loss_err": abs(got["loss0"] - lw) / abs(lw),
+                    "loss_err_world1": abs(one["loss0"] - lw) / abs(lw),
+                    "grad_err": rel(g2, gw), "grad_err_world1": rel(g1, gw)}
+            del g2, p2
+            if rank == 0:
+                del g1, p1
+        res.append(out)
+    (Path(out_dir) / f"h8_rank{rank}.json").write_text(json.dumps(mine))
+    if rank == 0:
+        (Path(out_dir) / "h8.json").write_text(json.dumps(res))
+
+
+def _mesh_tp_train(root: Path, card: str) -> None:
+    """(h8) tensor-parallel training on two ranks of card 0 over gloo
+    against world 1 and, for bf16, against the float32 witness."""
+    from repro_torch.launch.mesh import run_world
+    t0 = time.perf_counter()
+    run_world(_h8_world, 2, root / "h8.store", args=(str(root),),
+              device="cuda", backend="gloo", timeout=600)
+    secs = time.perf_counter() - t0
+    ranks = [json.loads((root / f"h8_rank{r}.json").read_text())
+             for r in range(2)]
+    for d in json.loads((root / "h8.json").read_text()):
+        f, b = d["float32"], d["bfloat16"]
+        pb, peak = ({dt: [r[f"{d['arch']} {dt}"][i] for r in ranks]
+                     for dt in ("float32", "bfloat16")} for i in (0, 1))
+        check(f["loss_rel"] <= MESH_TOL_H2 and f["params_close"],
+              f"h8 {d['arch']} float32: losses {f['tp']['losses']} vs "
+              f"world 1 {f['world1']['losses']}, params max |diff| "
+              f"{f['param_diff']}")
+        loss_lim = TPT_WITNESS_FACTOR * b["loss_err_world1"] + \
+            TPT_WITNESS_SLACK
+        grad_lim = TPT_WITNESS_FACTOR * b["grad_err_world1"] + \
+            TPT_WITNESS_SLACK
+        check(b["loss_err"] <= loss_lim and b["grad_err"] <= grad_lim,
+              f"h8 {d['arch']} bf16 against the float32 witness: {b}")
+        print(f"[mesh h8] tensor-parallel training, {d['arch']} published, "
+              f"float32 compute, (1, 2) mesh under its rules (sequence "
+              f"parallel) over gloo on card 0, {TPT_STEPS} AdamW steps of "
+              f"{TPT_BATCH} x {TPT_SEQ}: losses {f['tp']['losses']} vs world "
+              f"1 {f['world1']['losses']}, max relative difference "
+              f"{f['loss_rel']!r} (tol {MESH_TOL_H2}); final params max "
+              f"|diff| {f['param_diff']!r} (tol {MESH_PARAM_TOL}); grad norm "
+              f"{f['tp']['grad_norm']} vs world 1 {f['world1']['grad_norm']};"
+              f" first gradient relative to world 1's "
+              f"{f['grad_rel_world1']!r}; parameters {pb['float32']} bytes "
+              f"on ranks 0 and 1 vs {f['world1']['param_bytes']} at world 1;"
+              f" peak memory {[round(x / 1e9, 3) for x in peak['float32']]} "
+              f"GB vs {f['world1']['peak'] / 1e9:.3f} GB; first backward and the "
+              f"steps {f['tp']['secs']:.2f} s vs {f['world1']['secs']:.2f} s "
+              f"({card})")
+        print(f"[mesh h8] tensor-parallel training, {d['arch']} published "
+              f"bf16, the first step's loss and gradient before clipping "
+              f"against the float32 witness (the same weights in float32 at "
+              f"world 1): loss relative error TP {b['loss_err']!r}, world 1 "
+              f"{b['loss_err_world1']!r} (limit {loss_lim!r}); gradient "
+              f"relative error TP {b['grad_err']!r}, world 1 "
+              f"{b['grad_err_world1']!r} (limit {grad_lim!r}; "
+              f"{TPT_WITNESS_FACTOR} x world 1 + {TPT_WITNESS_SLACK}); "
+              f"parameters {pb['bfloat16']} bytes on ranks 0 and 1 vs "
+              f"{b['world1']['param_bytes']} at world 1; peak memory "
+              f"{[round(x / 1e9, 3) for x in peak['bfloat16']]} GB vs "
+              f"{b['world1']['peak'] / 1e9:.3f} GB ({card})")
+    RUN["h8_s"] = secs
+    print(f"[mesh h8] {secs:.1f} s with the processes' start ({card})")
+
+
 def _grid_fields(grid) -> dict:
     return {key: {p: (dataclasses.asdict(r), r.to_dict())
                   for p, r in cell.items()} for key, cell in grid.items()}
@@ -2684,7 +2873,7 @@ def phase_mesh(dev, grid_e, launches_e: int, card: str) -> None:
     """Phase 10: the device mesh — the launcher on meshes (h1, h2), the
     int8 all-reduce (h3), MoE expert parallelism (h4), the sweep mesh
     (h5), the data-parallel ZeRO-1 step and the sequence-sharded decode
-    (h6), tensor-parallel serving (h7)."""
+    (h6), tensor-parallel serving (h7) and training (h8)."""
     import shutil
     root = _mesh_dir()
     shutil.rmtree(root, ignore_errors=True)
@@ -2697,6 +2886,7 @@ def phase_mesh(dev, grid_e, launches_e: int, card: str) -> None:
         _mesh_grid(root, grid_e, launches_e, dev, card)
         _mesh_data_axes(root, card)
         _mesh_tp(root, card)
+        _mesh_tp_train(root, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"[mesh] phase 10: {time.perf_counter() - t0:.1f} s; carried "
@@ -2704,10 +2894,12 @@ def phase_mesh(dev, grid_e, launches_e: int, card: str) -> None:
           f"norm, h3's float reference), MAX float32 and SUM int32 (h3), "
           f"all_gather_into_tensor (h2's parameter gathers and checkpoint, "
           f"h4's token blocks, h5's table rows, h6's ZeRO-1 parameter "
-          f"slices; h7's column, sequence and logit gathers), "
-          f"reduce_scatter_tensor (h6's gradients, h7's sequence-parallel "
-          f"products), all_reduce MAX float32 (h6's and h7's decode "
-          f"maxima), all_to_all_single (h4), "
+          f"slices; h7's and h8's column, sequence and logit gathers, "
+          f"h8's backward of its reduce-scatters), "
+          f"reduce_scatter_tensor (h6's gradients, h7's and h8's "
+          f"sequence-parallel products, h8's backward of its sequence "
+          f"gathers), all_reduce MAX float32 (h6's and h7's decode "
+          f"maxima, h8's cross-entropy maxima), all_to_all_single (h4), "
           f"barrier; over NCCL at world 1 (h1, h2's resume) only "
           f"barrier: a one-rank mesh dim issues no gather or reduce "
           f"({card})")
@@ -3042,7 +3234,8 @@ def _run_phases(dev, sweep, card: str, t_all: float) -> int:
     lm_records = phase_dryrun(dev, sweep, lm_records, card)
     print(f"[done] {time.perf_counter() - t_all:.1f} s in all (limit 1200 "
           f"s); phase 11 {RUN['phase11_s']:.1f} s, paid for in part by the "
-          f"(d2) cut's about {RUN['d2_saved_s']:.1f} s")
+          f"(d2) cut's about {RUN['d2_saved_s']:.1f} s; (h8) "
+          f"{RUN['h8_s']:.1f} s")
     print(card)
     print(json.dumps({"kernels": [record, bloom_record, *lm_records]}))
     print(json.dumps({"ok": True, "device": {

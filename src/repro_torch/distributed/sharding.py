@@ -21,22 +21,20 @@ entry.  :func:`placements` turns a spec into DTensor placements
 (``Shard(d)`` / ``Replicate()`` per mesh dimension), :func:`distribute`
 lays a tree out.
 
-How the models run on sharded parameters.  The serving path
-(``prefill``, ``decode_step``) computes tensor-parallel over ``model``
+How the models run on sharded parameters.  ``loss`` (the train step),
+``prefill`` and ``decode_step`` compute tensor-parallel over ``model``
 on the parameters' shards, as the reference's GSPMD partitions the
-products from these specs (``distributed.tp``, which also lays the
-prefill's residual out sequence-parallel where the reference's
-``shard_activation`` does).  The training path (``forward``, ``loss``)
-computes every block on plain tensors: :func:`unshard` gathers each
-DTensor parameter at the model's entry (Shard -> Replicate by
-all-gathers over the mesh dims' process groups, whose backward is the
-local slice of the gradient — no collective), so a rank's forward and
-backward are the single-device computation bit for bit and activations
-stay replicated (ROADMAP A8 6b, training TP).  What the reference runs
-under ``shard_map`` is divided on both paths: MoE expert parallelism
-(``models.layers._moe_shardmap``), whose expert weights stay sharded
-(``unshard(params, keep=is_moe_expert)``); ``moe_constraint`` has no
-counterpart.
+products from these specs (``distributed.tp``, whose collectives carry
+their backward, and which lays the residual out sequence-parallel where
+the reference's ``shard_activation`` does).  ``forward`` (full logits,
+for tests) computes on plain tensors: :func:`unshard` gathers each
+DTensor parameter at its entry (Shard -> Replicate by all-gathers over
+the mesh dims' process groups, whose backward is the local slice of the
+gradient); checkpoints and ``int8_ef`` gather with it too.  What the
+reference runs under ``shard_map`` is divided on every path: MoE expert
+parallelism (``models.layers._moe_shardmap``), whose expert weights
+stay sharded (``unshard(params, keep=is_moe_expert)`` in ``forward``);
+``moe_constraint`` has no counterpart.
 Parameters, AdamW's moments and the update are sharded as the rules say.
 :class:`MeshRules` installed by :func:`activation_rules` turn expert
 parallelism on; the launcher installs none, as the reference's does.

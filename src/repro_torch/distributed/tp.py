@@ -1,16 +1,32 @@
-"""Tensor parallelism over the mesh's ``model`` axis for the serving path
-(``prefill`` and ``decode_step`` of every family): the collectives and
-the products built on them.
+"""Tensor parallelism over the mesh's ``model`` axis for every model
+path that runs on the parameters' shards — ``loss`` (the train step),
+``prefill`` and ``decode_step`` of every family: the collectives, their
+backward, and the products built on them.
 
 Why a module beside ``distributed.sharding``: that module lays trees out
 and gathers them back (the rule tables, DTensor placements, ZeRO-1
-blocks, the training path's differentiable gathers); this one computes
-on the parameters' local shards, as the reference's GSPMD partitions the
-products from the same specs (``src/repro/distributed/sharding.py``), and
-holds no autograd function.  Its collectives refuse a gradient, as the
-kernels do (``kernels.refuse_grad``): training gathers its parameters at
-the model's entry (``sharding.unshard``), and a training path that
-strayed here would otherwise lose its gradient silently.
+blocks, the whole-parameter gathers of ``forward`` and checkpoints);
+this one computes on the parameters' local shards, as the reference's
+GSPMD partitions the products from the same specs
+(``src/repro/distributed/sharding.py``).
+
+The backward keeps one invariant: a replicated activation's gradient is
+whole and equal on every model rank.  So each collective's backward is
+its transpose (``torch.autograd.Function``s over the same process-group
+calls): :func:`gather` (a column gather whose consumer is replicated)
+takes the rank's slice; :func:`gather_seq` (the sequence gathered for
+rank-partial products) reduce-scatters their partial gradients in
+float32; :func:`sum_f32` (the row-parallel all-reduce) is the identity;
+:func:`scatter_seq` all-gathers over the sequence; :func:`block` (the
+rank's block of a replicated tensor) all-gathers the blocks' gradients.
+Where a replicated tensor enters rank-partial products without a
+sequence gather — Megatron's "f": the columns of :func:`cols`, the
+cross-attention's encoder states, the loss head's input, the SSM's B and
+C read by the rank's heads — :func:`sum_grad` all-reduces its gradient in
+float32; it also sums the gradient of a replicated parameter used on the
+rank's sequence block (the norms under sequence parallelism), so that
+every replicated leaf reaches the optimizer with its whole gradient.
+Without a recorded gradient each function is the plain forward it was.
 
 The layout decides, leaf by leaf.  :func:`part` reads a parameter's
 placements: a DTensor cut over ``model`` gives its local block and the
@@ -18,10 +34,10 @@ dim it is cut along; a leaf the rules left replicated (its dim does not
 divide, the reference's ``_validate``) or a plain tensor is whole.  The
 products then take the path the leaf's layout allows:
 
-  * :func:`col` — a column-parallel product (``wq``/``wk``/``wv``,
-    ``wg``/``wi``, ``in_proj``): the rank's columns; :func:`col_full`
-    all-gathers them, which is exact (each column is one whole dot
-    product);
+  * :func:`cols` / :func:`col` — column-parallel products (``wq``/``wk``/
+    ``wv``, ``wg``/``wi``, ``in_proj``) of one input: the rank's
+    columns; :func:`col_full` all-gathers them, which is exact (each
+    column is one whole dot product);
   * :func:`row` — a row-parallel product (``wo``, ``out_proj``): the
     rank's rows times its block of the input's last dim, the partial
     sums written in float32 (a bf16 GEMM's too), all-reduced in float32
@@ -33,8 +49,10 @@ products then take the path the leaf's layout allows:
     zeroes the others, then all-reduces (exact: one rank contributes each
     row); a table cut over its columns (untied, ``(None, "model")``)
     looks up its columns and all-gathers them;
-  * :func:`logits` — the head: a head cut over the vocabulary gives the
-    rank's logits, all-gathered in float32 to ``[..., V]``.
+  * :func:`logits` — the serving head: a head cut over the vocabulary
+    gives the rank's logits, all-gathered in float32 to ``[..., V]``
+    (the loss never gathers them: ``models.transformer.chunked_ce_loss``
+    reduces the softmax over the ranks' blocks).
 
 Sequence parallelism (:func:`seq_axis`) follows the reference's
 ``shard_activation`` (``sharding.py:59-69``): with mesh rules installed
@@ -61,11 +79,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed import sharding as shd
-from repro_torch.kernels import refuse_grad
 
 F32 = torch.float32
-_INSTEAD = "the training path, which gathers its parameters at entry " \
-           "(distributed.sharding.unshard)"
 
 
 class Axis(NamedTuple):
@@ -126,28 +141,27 @@ def part(w) -> Tuple[torch.Tensor, Optional[int], Optional[Axis]]:
 
 def block(t: torch.Tensor, dim: int, ax: Optional[Axis]) -> torch.Tensor:
     """The rank's contiguous block of ``t`` along ``dim`` (all of it when
-    ``ax`` is None); nothing is sent."""
+    ``ax`` is None); nothing is sent.  ``t`` is replicated, so the
+    backward all-gathers the blocks' gradients (each rank computed on its
+    own block)."""
     if ax is None:
         return t
-    n = t.shape[dim] // ax.size
-    return t.narrow(dim, ax.rank * n, n)
+    return _Block.apply(t, dim % t.dim(), ax) if _grad(t) else \
+        _narrow(t, dim, ax)
 
 
 # ---------------------------------------------------------------------------
-# the collectives
+# the collectives and their backward
 # ---------------------------------------------------------------------------
 
-def _refuse(what: str, *tensors) -> None:
-    refuse_grad(f"the tensor-parallel {what}", _INSTEAD, tensors)
+def _grad(t: torch.Tensor) -> bool:
+    """Whether autograd records an operation on ``t``."""
+    return torch.is_grad_enabled() and t.requires_grad
 
 
-def gather(t: torch.Tensor, dim: int, ax: Optional[Axis]) -> torch.Tensor:
-    """The ranks' blocks of ``t`` concatenated along ``dim`` in rank order
-    (an all-gather over the model axis; ``t`` as it is when ``ax`` is
-    None)."""
-    if ax is None:
-        return t
-    _refuse("all-gather", t)
+def _all_gather(t: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:
+    """The ranks' ``t`` concatenated along ``dim`` in rank order (two-byte
+    floats sent as their bytes)."""
     dim = dim % t.dim()
     x = t.movedim(dim, 0).contiguous()
     flat = x.reshape(-1)
@@ -159,31 +173,191 @@ def gather(t: torch.Tensor, dim: int, ax: Optional[Axis]) -> torch.Tensor:
     return out.movedim(0, dim).contiguous()
 
 
-def sum_f32(t: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
-    """The sum of the ranks' ``t`` taken in float32 and rounded once to
-    ``t``'s type (an all-reduce over the model axis)."""
-    if ax is None:
-        return t
-    _refuse("all-reduce", t)
+def _all_reduce_f32(t: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """The ranks' ``t`` summed in float32, rounded once to ``t``'s type."""
     y = t.to(F32).contiguous()
     dist.all_reduce(y, group=ax.group)
     return y.to(t.dtype)
 
 
-def scatter_seq(t: torch.Tensor, ax: Axis) -> torch.Tensor:
-    """The sum of the ranks' ``t`` [B, S, ...] in float32, the rank's block
-    of the sequence (dim 1) of it, rounded once to ``t``'s type (a
-    reduce-scatter over the model axis)."""
-    _refuse("reduce-scatter", t)
+def _reduce_scatter_f32(t: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """The ranks' ``t`` [B, S, ...] summed in float32, this rank's block
+    of dim 1, rounded once to ``t``'s type."""
     x = t.to(F32).movedim(1, 0).contiguous()
     out = x.new_empty((x.shape[0] // ax.size,) + tuple(x.shape[1:]))
     dist.reduce_scatter_tensor(out, x, group=ax.group)
     return out.movedim(0, 1).to(t.dtype).contiguous()
 
 
+def _narrow(t: torch.Tensor, dim: int, ax: Axis) -> torch.Tensor:
+    n = t.shape[dim] // ax.size
+    return t.narrow(dim, ax.rank * n, n)
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim``; backward: the rank's slice of the
+    gradient, which the consumers of a replicated activation give whole
+    and equal on every rank."""
+
+    @staticmethod
+    def forward(ctx, t, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return _all_gather(t, dim, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _narrow(g, ctx.dim, ctx.ax).contiguous(), None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """All-gather of the sequence (dim 1) whose consumers are rank-partial
+    products; backward: their partial gradients summed in float32 and
+    reduce-scattered over the sequence."""
+
+    @staticmethod
+    def forward(ctx, t, ax):
+        ctx.ax = ax
+        return _all_gather(t, 1, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_f32(g, ctx.ax), None
+
+
+class _SumF32(torch.autograd.Function):
+    """The float32 all-reduce of rank-partial sums; backward: the
+    identity (the replicated sum's gradient is whole on every rank)."""
+
+    @staticmethod
+    def forward(ctx, t, ax):
+        return _all_reduce_f32(t, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """The float32 reduce-scatter of rank-partial sums over the sequence;
+    backward: the all-gather of the blocks' gradients."""
+
+    @staticmethod
+    def forward(ctx, t, ax):
+        ctx.ax = ax
+        return _reduce_scatter_f32(t, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, 1, ctx.ax), None
+
+
+class _Block(torch.autograd.Function):
+    """The rank's block of a replicated tensor; backward: the all-gather
+    of the blocks' gradients (each rank computed on its own block)."""
+
+    @staticmethod
+    def forward(ctx, t, dim, ax):
+        ctx.dim, ctx.ax = dim, ax
+        return _narrow(t, dim, ax).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.ax), None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    """The identity; backward: the gradient summed over the model axis in
+    float32 (Megatron's "f": a replicated tensor that rank-partial
+    products consume, or a replicated parameter used on a sequence
+    block)."""
+
+    @staticmethod
+    def forward(ctx, t, ax):
+        ctx.ax = ax
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_f32(g, ctx.ax), None
+
+
+class _Own(torch.autograd.Function):
+    """The identity; backward: the gradient outside the rank's block of
+    the sequence zeroed, so that a whole product's gradient on a gathered
+    sequence is counted once by :func:`gather_seq`'s reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, t, ax):
+        ctx.ax = ax
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[1] // ctx.ax.size
+        keep = torch.zeros_like(g)
+        lo = ctx.ax.rank * n
+        keep[:, lo:lo + n] = g[:, lo:lo + n]
+        return keep, None
+
+
+def gather(t: torch.Tensor, dim: int, ax: Optional[Axis]) -> torch.Tensor:
+    """The ranks' blocks of ``t`` concatenated along ``dim`` in rank order
+    (an all-gather over the model axis; ``t`` as it is when ``ax`` is
+    None).  Its backward takes the rank's slice of the gradient: the
+    result is a replicated activation, whose gradient is whole and equal
+    on every rank."""
+    if ax is None:
+        return t
+    if _grad(t):
+        return _Gather.apply(t, dim % t.dim(), ax)
+    return _all_gather(t, dim, ax)
+
+
+def sum_f32(t: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """The sum of the ranks' ``t`` taken in float32 and rounded once to
+    ``t``'s type (an all-reduce over the model axis; backward: the
+    identity)."""
+    if ax is None:
+        return t
+    return _SumF32.apply(t, ax) if _grad(t) else _all_reduce_f32(t, ax)
+
+
+def scatter_seq(t: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """The sum of the ranks' ``t`` [B, S, ...] in float32, the rank's block
+    of the sequence (dim 1) of it, rounded once to ``t``'s type (a
+    reduce-scatter over the model axis; backward: an all-gather over the
+    sequence)."""
+    return _ScatterSeq.apply(t, ax) if _grad(t) else \
+        _reduce_scatter_f32(t, ax)
+
+
+def sum_grad(t, ax: Optional[Axis]):
+    """``t`` whose gradient is summed over the model axis in float32 (the
+    identity when ``ax`` is None or nothing records a gradient): a
+    replicated tensor entering rank-partial products, or a replicated
+    parameter used on the rank's block of the sequence."""
+    if ax is None or not _grad(t):
+        return t
+    return _SumGrad.apply(t, ax)
+
+
+def own(t: torch.Tensor, sp: Optional[Axis]) -> torch.Tensor:
+    """``t``, the whole sequence gathered by :func:`gather_seq`, for a
+    product that computes it whole: its gradient kept on the rank's block
+    of the sequence alone (the identity without ``sp``)."""
+    if sp is None or not _grad(t):
+        return t
+    return _Own.apply(t, sp)
+
+
 def gather_seq(x: torch.Tensor, sp: Optional[Axis]) -> torch.Tensor:
-    """The whole sequence of a sequence-parallel ``x`` [B, S/m, ...]."""
-    return gather(x, 1, sp)
+    """The whole sequence of a sequence-parallel ``x`` [B, S/m, ...], for
+    rank-partial products (:func:`cols` with ``sp``): its backward sums
+    their partial gradients in float32 and reduce-scatters them over the
+    sequence."""
+    if sp is None:
+        return x
+    return _GatherSeq.apply(x, sp) if _grad(x) else _all_gather(x, 1, sp)
 
 
 def last_token(x: torch.Tensor, sp: Optional[Axis]) -> torch.Tensor:
@@ -210,19 +384,63 @@ def seq_axis(s: int) -> Optional[Axis]:
 # products
 # ---------------------------------------------------------------------------
 
-def col(x: torch.Tensor, w) -> Tuple[torch.Tensor, Optional[Axis]]:
-    """``x @ w`` for a column-parallel ``w`` [in, out]: (the rank's columns
-    and the axis) when ``w`` is cut over its columns, else (the whole
-    product, None)."""
-    wl, dim, ax = part(w)
-    y = x @ wl.to(x.dtype)
-    return (y, ax) if dim == 1 else (y, None)
+def cols(x: torch.Tensor, ws, sp: Optional[Axis] = None) -> list:
+    """``[(x @ w, axis) for w in ws]`` for column-parallel weights [in,
+    out]: the rank's columns and the axis where ``w`` is cut over its
+    columns, else the whole product and None.
+
+    The backward: a column block's input gradient is the rank's partial
+    sum.  With ``sp`` (``x`` the whole sequence from :func:`gather_seq`)
+    that reduce-scatter sums it, and a whole product's gradient is kept
+    on the rank's block of the sequence (:func:`own`); without, ``x``
+    enters the cut products through one float32 all-reduce of their
+    gradient (:func:`sum_grad`), the whole products as it is."""
+    parts = [part(w) for w in ws]
+    ax = next((a for _, d, a in parts if d == 1), None)
+    x_cut = x if sp is not None else sum_grad(x, ax)
+    x_whole = own(x, sp) if any(d != 1 for _, d, _ in parts) else x
+    return [(x_cut @ wl.to(x.dtype), a) if d == 1 else
+            (x_whole @ wl.to(x.dtype), None) for wl, d, a in parts]
 
 
-def col_full(x: torch.Tensor, w) -> torch.Tensor:
+def col(x: torch.Tensor, w, sp: Optional[Axis] = None
+        ) -> Tuple[torch.Tensor, Optional[Axis]]:
+    """``x @ w`` for a column-parallel ``w`` [in, out] (:func:`cols`)."""
+    return cols(x, (w,), sp)[0]
+
+
+def col_full(x: torch.Tensor, w, sp: Optional[Axis] = None) -> torch.Tensor:
     """``x @ w`` whole: a column-parallel product's columns gathered."""
-    y, ax = col(x, w)
+    y, ax = col(x, w, sp)
     return gather(y, -1, ax)
+
+
+def _mm_f32(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h @ w`` of two-byte ``h`` and ``w``, written in float32: one GEMM
+    with a float32 output."""
+    y = torch.mm(h.reshape(-1, h.shape[-1]), w, out_dtype=F32)
+    return y.view(h.shape[:-1] + (w.shape[-1],))
+
+
+class _PartialMM(torch.autograd.Function):
+    """:func:`_mm_f32`; backward: the gradient (whole, its values those of
+    the two-byte output it was rounded from) in ``h``'s type, the input
+    and weight gradients two-byte products as one device's are."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return _mm_f32(h, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        g = g.to(h.dtype)
+        dh = g @ w.T if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = h.reshape(-1, h.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return dh, dw
 
 
 def _partial(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -238,8 +456,9 @@ def _partial(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return h @ w
     if h.device.type == "cpu":
         return h.to(F32) @ w.to(F32)
-    y = torch.mm(h.reshape(-1, h.shape[-1]), w, out_dtype=F32)
-    return y.view(h.shape[:-1] + (w.shape[-1],))
+    if _grad(h) or _grad(w):
+        return _PartialMM.apply(h, w)
+    return _mm_f32(h, w)
 
 
 def row(h: torch.Tensor, w, h_ax: Optional[Axis] = None,

@@ -27,23 +27,24 @@ What the per-device step is: the reference's ``lower_cell`` with its
 the train state by ``state_shardings`` (ZeRO-1 moments), the batch by
 ``batch_shardings``, the decode cache by ``cache_shardings`` and the
 tokens by ``token_shardings`` — under ``activation_rules(make_rules(mesh,
-cfg))``, as ``src/repro/launch/dryrun.py:72-108`` installs them.  So a
-train cell runs a data-parallel step on its rank's rows (the gradient
+cfg))``, as ``src/repro/launch/dryrun.py:72-108`` installs them.  Every
+cell computes its blocks tensor-parallel over ``model`` on the
+parameters' shards (``distributed.tp``: the activations' column gathers,
+the float32 all-reduces of the row-parallel products, the
+vocab-parallel embedding and head; the residual sequence-parallel
+between blocks, the row-parallel products reduce-scattered over the
+sequence; the SSM state and conv cache on the rank's heads and
+channels).  A train cell runs that step's backward too (each
+collective's: the sequence gathers' reduce-scatters, the
+reduce-scatters' all-gathers, the vocab-parallel cross-entropy's
+all-reduces) on its rank's rows, data-parallel (the gradient
 reduce-scattered over the data axes into the ZeRO-1 layout, the new
-parameters all-gathered back); a prefill or decode cell computes its
-blocks tensor-parallel over ``model`` on the parameters' shards
-(``distributed.tp``: the activations' column gathers, the float32
-all-reduces of the row-parallel products, the vocab-parallel embedding
-and head; a prefill's residual sequence-parallel between blocks, its
-row-parallel products reduce-scattered over the sequence; the SSM
-state and conv cache on the rank's heads and channels); a decode cell
-attends over its slice of the KV sequence (all-reduces of the softmax
-statistics and of the partial outputs); and a MoE cell's dispatch takes
-expert parallelism (all-to-alls over ``model``, or in decode the
-rank's experts and an all-gather of their outputs).  Where it still
-departs from the reference's design (ROADMAP A8 item 6b), the record
-says under ``departures``: the train step gathers its parameters at the
-model's entry and computes every block replicated over ``model``.
+parameters all-gathered back); a decode cell attends over its slice of
+the KV sequence (all-reduces of the softmax statistics and of the
+partial outputs); and a MoE cell's dispatch takes expert parallelism
+(all-to-alls over ``model``, or in decode the rank's experts and an
+all-gather of their outputs).  The record's ``departures`` name how
+the port lays the step out where the reference leaves it to GSPMD.
 
 Each cell writes ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json``
 with the reference record's keys where their meaning carries
@@ -102,8 +103,7 @@ ART = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
 MESHES = {"single": 256, "multi": 512}
 #: the port's departures from the reference design that a record names
 DEPARTURES = {
-    "replicated_blocks": "train step: parameters gathered at entry, blocks "
-                         "replicated over 'model' (A8 6b, train TP)",
+    "tp_training": True,
     "tp_serving": True,
     "zero1": True,
     "expert_parallel": True,

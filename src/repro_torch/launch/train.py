@@ -38,7 +38,10 @@ environment (a world of 1 when run as a single process; ``nccl`` on
 v are laid out by ``distributed.sharding.param_shardings``, and step and
 batch are replicated (the reference passes ``in_shardings=(shardings,
 None)`` under ``activation_rules(None)``, so its data ranks repeat the
-same work; so do the port's, which adds no data parallelism).  Only rank
+same work; so do the port's, which adds no data parallelism).  The
+blocks compute tensor-parallel over the mesh's ``model`` dim on the
+parameters' shards (``distributed.tp``), without sequence parallelism:
+no rules are installed, as the reference installs none.  Only rank
 0 prints the step lines and writes checkpoints (every rank gathers its
 shards for them); ``--resume`` restores onto the new mesh, whatever mesh
 saved; a preemption checkpoints and exits 42 on every rank.  Ranks beyond

@@ -22,12 +22,12 @@ the JAX package's plain, differentiable attention in the encoder
 ``transformer._remat``.  Decode is plain torch, its cross-attention over
 the whole of ``ck``/``cv``.
 
-On a device mesh the parameters are DTensors: ``forward`` and ``loss``
-gather them at their entry (``distributed.sharding.unshard``) and run
-the blocks on plain tensors.  ``prefill`` and ``decode_step`` compute
-tensor-parallel over ``model`` on the parameters' shards
+On a device mesh the parameters are DTensors: ``forward`` (tests)
+gathers them at its entry (``distributed.sharding.unshard``) and runs the
+blocks on plain tensors.  ``loss``, ``prefill`` and ``decode_step``
+compute tensor-parallel over ``model`` on the parameters' shards
 (``distributed.tp``; ``models.ssm.mamba_forward``), the prefill's
-residual sequence-parallel under mesh rules. The encoder's residual is
+residual sequence-parallel under mesh rules (the train step's too). The encoder's residual is
 sequence-parallel over its frames, the decoder's over its prompt; the
 cross K/V are whole.
 """
@@ -100,45 +100,48 @@ class EncDecLM:
         cfg = self.cfg
         x = frames.to(self.cdt) @ params["frame_proj"].to(self.cdt)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        sp = tp.seq_axis(x.shape[1]) if kernel else None
+        sp = tp.seq_axis(x.shape[1])
         x = tp.block(x, 1, sp)
 
         def block(h, lp):
-            hn = L.rms_norm(h, lp["ln1"], cfg.norm_eps)
+            hn = tp.gather_seq(L.seq_norm(h, lp["ln1"], cfg.norm_eps, sp), sp)
             if kernel:
-                o, _, _ = L.flash_attn(lp["attn"], tp.gather_seq(hn, sp),
-                                       cfg, positions, causal=False, sp=sp)
+                o, _, _ = L.flash_attn(lp["attn"], hn, cfg, positions,
+                                       causal=False, sp=sp)
             else:
                 o = L.attn_forward(lp["attn"], hn, cfg, positions,
-                                   causal=False)
+                                   causal=False, sp=sp)
             return self._mlp(lp, h + o, "ln2", sp)
 
         if not kernel:
             block = _remat(block, cfg)
         for lp in params["enc_layers"]:
             x = block(x, lp)
-        return tp.gather_seq(L.rms_norm(x, params["enc_norm"], cfg.norm_eps),
-                             sp)
+        return tp.gather_seq(L.seq_norm(x, params["enc_norm"], cfg.norm_eps,
+                                        sp), sp)
 
     # ---------------- forward / train ----------------
-    def _body(self, params, batch):
+    def _body(self, params, batch, sp=None):
         """Encoder and decoder (plain attention, each block under
-        ``_remat``): the decoder's output [B, S, d] before the final
-        norm."""
+        ``_remat``): the decoder's output [B, S, d] before the final norm
+        (with ``sp`` the rank's block of its sequence-parallel
+        residual)."""
         cfg = self.cfg
         enc = self.encode(params, batch["frames"], kernel=False)
+        enc_sp = tp.seq_axis(batch["frames"].shape[1])
         x = self._embed(params, batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        x = tp.block(x, 1, sp)
 
         def block(h, lp):
-            h = h + L.attn_forward(lp["attn"],
-                                   L.rms_norm(h, lp["ln1"], cfg.norm_eps),
-                                   cfg, positions, causal=True)
-            h = h + L.attn_forward(lp["cross"],
-                                   L.rms_norm(h, lp["ln2"], cfg.norm_eps),
-                                   cfg, positions, causal=False,
-                                   kv_override=enc)
-            return self._mlp(lp, h, "ln3")
+            hn = tp.gather_seq(L.seq_norm(h, lp["ln1"], cfg.norm_eps, sp), sp)
+            h = h + L.attn_forward(lp["attn"], hn, cfg, positions,
+                                   causal=True, sp=sp)
+            hn = tp.gather_seq(L.seq_norm(h, lp["ln2"], cfg.norm_eps, sp), sp)
+            h = h + L.attn_forward(lp["cross"], hn, cfg, positions,
+                                   causal=False, kv_override=enc, sp=sp,
+                                   kv_sp=enc_sp)
+            return self._mlp(lp, h, "ln3", sp)
 
         block = _remat(block, cfg)
         for lp in params["dec_layers"]:
@@ -153,10 +156,15 @@ class EncDecLM:
     def loss(self, params, batch, count=None
              ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Mean next-token cross-entropy of the decoder's tokens given the
-        ``frames`` -> (loss, {"loss", "tokens"})."""
-        params = unshard(params)
-        return lm_loss(self._body(params, batch), params["unembed"],
-                       params["final_norm"], batch, self.cfg.norm_eps, count)
+        ``frames`` -> (loss, {"loss", "tokens"}), on the parameters'
+        shards (``models.transformer.TransformerLM.loss`` says how; the
+        encoder's residual is sequence-parallel over its frames, the
+        decoder's over its tokens)."""
+        params = tp.localize(params)
+        sp = tp.seq_axis(batch["tokens"].shape[1])
+        return lm_loss(self._body(params, batch, sp), params["unembed"],
+                       params["final_norm"], batch, self.cfg.norm_eps, count,
+                       sp=sp)
 
     # ---------------- serve ----------------
     def cache_spec(self, batch_size: int, max_len: int,

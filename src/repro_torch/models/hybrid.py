@@ -24,12 +24,12 @@ differentiable ``ssm.ssd_chunked`` (each Mamba block under
 (``layers.attn_forward``).  Decode is plain torch (``ssm.mamba_step``,
 ``layers.attn_decode_forward``).
 
-On a device mesh the parameters are DTensors: ``forward`` and ``loss``
-gather them at their entry (``distributed.sharding.unshard``) and run
-the blocks on plain tensors.  ``prefill`` and ``decode_step`` compute
-tensor-parallel over ``model`` on the parameters' shards
+On a device mesh the parameters are DTensors: ``forward`` (tests)
+gathers them at its entry (``distributed.sharding.unshard``) and runs the
+blocks on plain tensors.  ``loss``, ``prefill`` and ``decode_step``
+compute tensor-parallel over ``model`` on the parameters' shards
 (``distributed.tp``; ``models.ssm.mamba_forward``), the prefill's
-residual sequence-parallel under mesh rules. The shared blocks are
+residual sequence-parallel under mesh rules (the train step's too). The shared blocks are
 tensor-parallel as ``models.transformer``'s, the Mamba blocks as
 ``models.mamba_lm``'s.
 """
@@ -110,27 +110,31 @@ class Zamba2LM:
             start += size
 
     # ---------------- forward / train ----------------
-    def _body(self, params, batch):
+    def _body(self, params, batch, seq=None):
         """Every segment: its Mamba blocks (``ssd_chunked``, each under
-        ``_remat``), then its shared block (plain attention)."""
+        ``_remat``), then its shared block (plain attention); with ``seq``
+        the residual is sequence-parallel (the rank's block returned)."""
         cfg = self.cfg
         x = self._embed(params, batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        x = tp.block(x, 1, seq)
 
         def mblock(h, lp):
             return h + ssm.mamba_forward(
-                lp["m"], L.rms_norm(h, lp["ln"], cfg.norm_eps), cfg,
-                kernel=False)
+                lp["m"], tp.gather_seq(L.seq_norm(h, lp["ln"], cfg.norm_eps,
+                                                  seq), seq), cfg,
+                kernel=False, sp=seq)
 
         mblock = _remat(mblock, cfg)
         for start, size, sp in self._apps(params):
             for lp in params["layers"][start:start + size]:
                 x = mblock(x, lp)
             if sp is not None:
-                x = x + L.attn_forward(sp["attn"],
-                                       L.rms_norm(x, sp["ln1"], cfg.norm_eps),
-                                       cfg, positions, causal=True)
-                x = self._mlp(sp, x)
+                hn = tp.gather_seq(L.seq_norm(x, sp["ln1"], cfg.norm_eps,
+                                              seq), seq)
+                x = x + L.attn_forward(sp["attn"], hn, cfg, positions,
+                                       causal=True, sp=seq)
+                x = self._mlp(sp, x, seq)
         return x
 
     def forward(self, params, batch) -> torch.Tensor:
@@ -140,10 +144,14 @@ class Zamba2LM:
 
     def loss(self, params, batch, count=None
              ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """Mean next-token cross-entropy -> (loss, {"loss", "tokens"})."""
-        params = unshard(params)
-        return lm_loss(self._body(params, batch), params["unembed"],
-                       params["final_norm"], batch, self.cfg.norm_eps, count)
+        """Mean next-token cross-entropy -> (loss, {"loss", "tokens"}), on
+        the parameters' shards (``models.transformer.TransformerLM.loss``
+        says how)."""
+        params = tp.localize(params)
+        seq = tp.seq_axis(batch["tokens"].shape[1])
+        return lm_loss(self._body(params, batch, seq), params["unembed"],
+                       params["final_norm"], batch, self.cfg.norm_eps, count,
+                       sp=seq)
 
     # ---------------- serve ----------------
     def cache_spec(self, batch_size: int, max_len: int) -> Dict[str, Any]:

@@ -39,9 +39,16 @@ expert-sharded DTensors, their gradient summed over the data axes by
 ``sharding.sum_grad``), exchanges back, combines, and all-gathers the
 blocks into replicated activations again (``sharding.gather``; backward:
 the local slice).  It returns None — the
-pure path — when the shapes do not tile the mesh.  The other DTensor
-parameters reach these functions gathered (``sharding.unshard``);
-an expert weight reaching the pure path is gathered in ``_experts``.
+pure path — when the shapes do not tile the mesh.  The other parameters
+reach these functions as the rank's shards (``distributed.tp``; gathered
+by ``sharding.unshard`` in ``forward``); an expert weight reaching the
+pure path in another layout is gathered in ``_experts``.
+
+Training on the shards (``attn_forward``, ``mlp_forward``,
+``moe_forward``) uses the same products as serving; every collective
+there carries its backward (``distributed.tp``), and ``seq_norm`` sums
+a replicated norm weight's gradient over the model axis where the rank
+normed its block of a sequence-parallel residual.
 """
 from __future__ import annotations
 
@@ -116,9 +123,9 @@ def gated_rms_norm(x, gate, w, eps: float = 1e-5, ax=None):
     x = x.to(F32) * F.silu(gate.to(F32))
     if ax is None:
         var = x.square().mean(dim=-1, keepdim=True)
-    else:
-        var = tp.sum_f32(x.square().sum(dim=-1, keepdim=True), ax) \
-            / (x.shape[-1] * ax.size)
+    else:   # each rank's block reads the whole sum: its gradient summed
+        var = tp.sum_grad(tp.sum_f32(x.square().sum(dim=-1, keepdim=True),
+                                     ax), ax) / (x.shape[-1] * ax.size)
     y = x * torch.rsqrt(var + eps)
     return (y * (1.0 + w.to(F32))).to(dt)
 
@@ -257,42 +264,103 @@ def attention_decode(q, k_cache, v_cache, cache_len: int,
     return o.to(v_cache.dtype).reshape(b, 1, hq, dh)
 
 
-def qkv_proj(p: Params, x, cfg: ModelConfig, positions):
+def qkv_proj(p: Params, x, cfg: ModelConfig, positions, sp=None):
     """q [B,S,Hq,D] and k, v [B,S,Hkv,D] of ``x`` [B,S,d], rotary applied
-    to q and k."""
+    to q and k; with ``sp`` ``x`` is the whole sequence from
+    ``tp.gather_seq`` (``tp.cols``)."""
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = tp.col_full(x, p["wq"]).reshape(b, s, hq, dh)
-    k = tp.col_full(x, p["wk"]).reshape(b, s, hkv, dh)
-    v = tp.col_full(x, p["wv"]).reshape(b, s, hkv, dh)
+    (q, aq), (k, ak), (v, av) = tp.cols(x, (p["wq"], p["wk"], p["wv"]), sp)
+    q = tp.gather(q, -1, aq).reshape(b, s, hq, dh)
+    k = tp.gather(k, -1, ak).reshape(b, s, hkv, dh)
+    v = tp.gather(v, -1, av).reshape(b, s, hkv, dh)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def cross_kv(p: Params, enc, cfg: ModelConfig):
-    """k, v [B,Se,Hkv,D] of the encoder states ``enc`` [B,Se,d]."""
+def cross_kv(p: Params, enc, cfg: ModelConfig, sp=None):
+    """k, v [B,Se,Hkv,D] of the encoder states ``enc`` [B,Se,d] (with
+    ``sp`` gathered by ``tp.gather_seq``)."""
     b, se, _ = enc.shape
     shape = (b, se, cfg.n_kv_heads, cfg.head_dim)
-    return (tp.col_full(enc, p["wk"]).reshape(shape),
-            tp.col_full(enc, p["wv"]).reshape(shape))
+    (k, ak), (v, av) = tp.cols(enc, (p["wk"], p["wv"]), sp)
+    return (tp.gather(k, -1, ak).reshape(shape),
+            tp.gather(v, -1, av).reshape(shape))
+
+
+def _rank_heads(p: Params, cfg: ModelConfig):
+    """(axis, whether the KV heads are the rank's own columns too) where
+    this rank computes its block of the q heads on its own ``wq`` columns
+    — the axis divides Hq, the rules cut ``wq`` over its columns and
+    ``wo`` over its rows — else (None, False).  The KV heads are the
+    rank's own columns where the axis divides Hkv and the rules cut
+    ``wk``/``wv`` so: exactly the heads its q heads read."""
+    ax = tp.axis_of(p["wq"], p["wo"])
+    if ax is None or cfg.n_heads % ax.size or \
+            [tp.part(p[n])[1] for n in ("wq", "wo")] != [1, 0]:
+        return None, False
+    own_kv = cfg.n_kv_heads % ax.size == 0 and \
+        [tp.part(p[n])[1] for n in ("wk", "wv")] == [1, 1]
+    return ax, own_kv
+
+
+def kv_heads(k, v, ax, hq: int):
+    """k, v [B,S,Hkv,D] (whole) cut to the KV heads that the rank's block
+    of ``hq`` q heads reads, in the layout the grouping ``h // (Hq/Hkv)``
+    of the block expects: a whole number of groups, one shared KV head,
+    or else each q head's KV head repeated."""
+    n, g = hq // ax.size, hq // k.shape[2]
+    h0 = ax.rank * n
+    if n % g == 0 or g % n == 0:
+        kv = slice(h0 // g, h0 // g + max(1, n // g))
+        return k[:, :, kv], v[:, :, kv]
+    idx = torch.arange(h0, h0 + n, device=k.device) // g
+    return k[:, :, idx], v[:, :, idx]
 
 
 def attn_forward(p: Params, x, cfg: ModelConfig, positions, *,
-                 causal: bool = True, kv_override=None):
+                 causal: bool = True, kv_override=None, sp=None,
+                 kv_sp=None):
     """Full-sequence attention block body (plain torch).  x: [B,S,d]; with
     ``kv_override`` (encoder states [B,Se,d]) it is cross attention, k and
-    v from those states and no rotary on q or k."""
+    v from those states and no rotary on q or k.
+
+    On the model axis (``distributed.tp``) each rank computes the q heads
+    of its own columns where the layout allows (:func:`_rank_heads`;
+    their KV heads its own columns too, or cut from the gathered whole,
+    whose gradient the ranks' parts then sum), else every head from the
+    gathered columns; ``wo`` is row-parallel.  With ``sp`` ``x`` is the
+    whole sequence from ``tp.gather_seq`` and the output the rank's block
+    of it; ``kv_sp`` likewise for ``kv_override``."""
     b, s, _ = x.shape
-    if kv_override is None:
-        q, k, v = qkv_proj(p, x, cfg, positions)
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ax, own_kv = _rank_heads(p, cfg)
+    cross = kv_override is not None
+    src, src_sp = (kv_override.to(x.dtype), kv_sp) if cross else (x, sp)
+    if ax is None:
+        if cross:
+            q = tp.col_full(x, p["wq"], sp).reshape(b, s, hq, dh)
+            k, v = cross_kv(p, src, cfg, src_sp)
+        else:
+            q, k, v = qkv_proj(p, x, cfg, positions, sp)
     else:
-        q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, -1)
-        k, v = cross_kv(p, kv_override.to(x.dtype), cfg)
+        q = tp.col(x, p["wq"], sp)[0].reshape(b, s, hq // ax.size, dh)
+        if own_kv:
+            (k, _), (v, _) = tp.cols(src, (p["wk"], p["wv"]), src_sp)
+            shape = (b, src.shape[1], hkv // ax.size, dh)
+            k, v = k.reshape(shape), v.reshape(shape)
+        else:
+            k, v = cross_kv(p, src, cfg, src_sp)
+        if not cross:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        if not own_kv:
+            k, v = kv_heads(tp.sum_grad(k, ax), tp.sum_grad(v, ax), ax, hq)
     if cfg.attn_mode == "naive":
         o = attention_naive(q, k, v, causal=causal)
     else:
         o = attention_chunked(q, k, v, causal=causal, chunk=cfg.attn_chunk)
-    return o.reshape(b, s, -1) @ p["wo"].to(x.dtype)
+    return tp.row(o.reshape(b, s, -1), p["wo"], ax, sp)
 
 
 def flash_attn(p: Params, hn, cfg: ModelConfig, positions, *,
@@ -300,44 +368,33 @@ def flash_attn(p: Params, hn, cfg: ModelConfig, positions, *,
     """A prefill attention block through the flash kernel: (out [B,S,d],
     k, v).  Self attention of ``hn`` [B,S,d] (rotary on q and k), or with
     ``kv`` (k, v [B,Se,Hkv,D] of the encoder states) cross attention, q
-    without rotary.  On the model axis (``distributed.tp``) q, k and v
-    are whole (their columns gathered), the kernel runs on the rank's
-    heads (:func:`local_heads`) and ``wo`` is row-parallel; with ``sp``
-    (``hn`` the whole sequence of a sequence-parallel residual) ``out`` is
-    the rank's block of the sequence."""
+    without rotary.  On the model axis (``distributed.tp``) the rank
+    computes the q heads of its own ``wq`` columns where the layout allows
+    (:func:`_rank_heads`), else every head from the gathered columns; k
+    and v are whole (the cache holds them), the kernel reads the KV heads
+    of the rank's q heads (:func:`kv_heads`) and ``wo`` is row-parallel;
+    with ``sp`` (``hn`` the whole sequence of a sequence-parallel
+    residual) ``out`` is the rank's block of the sequence."""
     b, s, _ = hn.shape
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ax, _ = _rank_heads(p, cfg)
     if kv is None:
-        q, k, v = qkv_proj(p, hn, cfg, positions)
+        (q, aq), (k, ak), (v, av) = tp.cols(hn, (p["wq"], p["wk"], p["wv"]))
+        k = apply_rope(tp.gather(k, -1, ak).reshape(b, s, hkv, dh),
+                       positions, cfg.rope_theta)
+        v = tp.gather(v, -1, av).reshape(b, s, hkv, dh)
     else:
-        q = tp.col_full(hn, p["wq"]).reshape(b, s, cfg.n_heads,
-                                             cfg.head_dim)
+        q, aq = tp.col(hn, p["wq"])
         k, v = (t.to(hn.dtype) for t in kv)
-    ax = tp.axis_of(p["wq"], p["wo"])
-    ql, kl, vl, ax_o = local_heads(q, k, v, ax)
-    o = flash_attention(ql, kl, vl, causal=causal)
-    return tp.row(o.reshape(b, s, -1), p["wo"], ax_o, sp), k, v
-
-
-def local_heads(q, k, v, ax):
-    """(q, k, v, axis) of the heads this rank computes: where the model
-    axis divides Hq, its contiguous block of q heads with exactly the KV
-    heads they read (so that the kernel's group mapping ``h // (Hq/Hkv)``
-    stays right: a whole number of groups, one shared KV head, or else
-    each head's KV head repeated), and the axis; otherwise every head and
-    None."""
-    hq, hkv = q.shape[2], k.shape[2]
-    if ax is None or hq % ax.size:
-        return q, k, v, None
-    n, g = hq // ax.size, hq // hkv
-    h0 = ax.rank * n
-    if n % g == 0 or g % n == 0:
-        kv = slice(h0 // g, h0 // g + max(1, n // g))
-        k, v = k[:, :, kv], v[:, :, kv]
-    else:
-        idx = torch.arange(h0, h0 + n, device=q.device) // g
-        k, v = k[:, :, idx], v[:, :, idx]
-    return (q[:, :, h0:h0 + n].contiguous(), k.contiguous(), v.contiguous(),
-            ax)
+    if ax is None:
+        q = tp.gather(q, -1, aq)
+    q = q.reshape(b, s, -1, dh)
+    if kv is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+    kl, vl = (k, v) if ax is None else kv_heads(k, v, ax, hq)
+    o = flash_attention(q.contiguous(), kl.contiguous(), vl.contiguous(),
+                        causal=causal)
+    return tp.row(o.reshape(b, s, -1), p["wo"], ax, sp), k, v
 
 
 def stack_kv(ks, vs, max_len: Optional[int]):
@@ -425,10 +482,10 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, pdt,
 def mlp_forward(p: Params, x, sp=None):
     """SwiGLU MLP of ``x`` [B,S,d]: ``wg``/``wi`` column-parallel on the
     model axis, the gate and the activation on the rank's own ``d_ff``
-    columns, ``wo`` row-parallel (``distributed.tp``); with ``sp`` the
-    output is the rank's block of the sequence."""
-    g, ax = tp.col(x, p["wg"])
-    u, ax_u = tp.col(x, p["wi"])
+    columns, ``wo`` row-parallel (``distributed.tp``); with ``sp`` ``x``
+    is the whole sequence from ``tp.gather_seq`` and the output the
+    rank's block of it."""
+    (g, ax), (u, ax_u) = tp.cols(x, (p["wg"], p["wi"]), sp)
     if ax_u != ax:                       # one cut, the other whole
         g, u, ax = tp.gather(g, -1, ax), tp.gather(u, -1, ax_u), None
     return tp.row(F.silu(g) * u, p["wo"], ax, sp)
@@ -436,8 +493,17 @@ def mlp_forward(p: Params, x, sp=None):
 
 def mlp_residual(p: Params, ln, x, eps: float, sp=None):
     """``x`` plus the MLP of its RMS norm (weight ``ln``); with ``sp``
-    ``x`` is the rank's block of a sequence-parallel residual."""
-    return x + mlp_forward(p, tp.gather_seq(rms_norm(x, ln, eps), sp), sp)
+    ``x`` is the rank's block of a sequence-parallel residual (``ln``'s
+    gradient then summed over the model axis: ``seq_norm``)."""
+    return x + mlp_forward(p, tp.gather_seq(seq_norm(x, ln, eps, sp), sp),
+                           sp)
+
+
+def seq_norm(x, w, eps: float, sp=None):
+    """``rms_norm(x, w)``; with ``sp`` ``x`` is the rank's block of a
+    sequence-parallel residual, so the replicated ``w``'s gradient, the
+    rank's tokens' part, is summed over the model axis."""
+    return rms_norm(x, tp.sum_grad(w, sp), eps)
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, pdt) -> Params:
@@ -502,12 +568,16 @@ def moe_forward(p: Params, x, cfg: ModelConfig, sp=None):
     if sp is not None:
         rules = shd.current_rules()
         if cfg.moe_mode != "dense":
-            topw, topi = moe_route(p, x, cfg)
+            # the router on the rank's tokens: its gradient a part
+            topw, topi = moe_route({"router": tp.sum_grad(p["router"], sp)},
+                                   x, cfg)
             out = _moe_shardmap(p, x, topi, topw.to(x.dtype), cfg, rules,
                                 seq_local=True)
             if out is not None:
                 return out
-        return tp.block(moe_forward(p, tp.gather_seq(x, sp), cfg), 1,
+        # every token on every rank: a replicated activation, its
+        # gradient whole (a plain gather's backward, the slice)
+        return tp.block(moe_forward(p, tp.gather(x, 1, sp), cfg), 1,
                         sp).contiguous()
     b, s, d = x.shape
     e, k = cfg.n_experts_padded, cfg.topk

@@ -9,12 +9,12 @@ launch per layer, under ``torch.no_grad()``; ``forward`` and ``loss``
 run the differentiable ``ssm.ssd_chunked`` instead, each block under
 ``transformer._remat``, and reach no kernel.
 
-On a device mesh the parameters are DTensors: ``forward`` and ``loss``
-gather them at their entry (``distributed.sharding.unshard``) and run
-the blocks on plain tensors.  ``prefill`` and ``decode_step`` compute
-tensor-parallel over ``model`` on the parameters' shards
+On a device mesh the parameters are DTensors: ``forward`` (tests)
+gathers them at its entry (``distributed.sharding.unshard``) and runs the
+blocks on plain tensors.  ``loss``, ``prefill`` and ``decode_step``
+compute tensor-parallel over ``model`` on the parameters' shards
 (``distributed.tp``; ``models.ssm.mamba_forward``), the prefill's
-residual sequence-parallel under mesh rules. The prefill's cache
+residual sequence-parallel under mesh rules (the train step's too). The prefill's cache
 holds the rank's SSM heads and conv channels (``tp.lay_cache``), as
 the reference's ``cache_shardings`` lays them out.
 """
@@ -58,9 +58,11 @@ class Mamba2LM:
                 gen, (cfg.d_model, cfg.vocab_padded), self.pdt)
         return params
 
-    def _unembed(self, params):
-        return params["embed"].T if self.cfg.tie_embeddings \
-            else params["unembed"]
+    def _head(self, params):
+        """(the loss head's weight, its vocabulary dim)."""
+        if self.cfg.tie_embeddings:
+            return params["embed"], 0
+        return params["unembed"], 1
 
     def _embed(self, params, tokens):
         return tp.embed(params["embed"], tokens, self.cdt)
@@ -71,17 +73,19 @@ class Mamba2LM:
             return tp.logits(x, params["embed"], 0)
         return tp.logits(x, params["unembed"], 1)
 
-    def _body(self, params, batch):
-        """Every block (``ssd_chunked``, each under ``_remat``)."""
+    def _body(self, params, batch, sp=None):
+        """Every block (``ssd_chunked``, each under ``_remat``); with ``sp``
+        the residual is sequence-parallel (the rank's block returned)."""
         cfg = self.cfg
 
         def block(h, lp):
             return h + ssm.mamba_forward(
-                lp["m"], L.rms_norm(h, lp["ln"], cfg.norm_eps), cfg,
-                kernel=False)
+                lp["m"], tp.gather_seq(L.seq_norm(h, lp["ln"], cfg.norm_eps,
+                                                  sp), sp), cfg,
+                kernel=False, sp=sp)
 
         block = _remat(block, cfg)
-        x = self._embed(params, batch["tokens"])
+        x = tp.block(self._embed(params, batch["tokens"]), 1, sp)
         for lp in params["layers"]:
             x = block(x, lp)
         return x
@@ -93,10 +97,15 @@ class Mamba2LM:
 
     def loss(self, params, batch, count=None
              ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """Mean next-token cross-entropy -> (loss, {"loss", "tokens"})."""
-        params = unshard(params)
-        return lm_loss(self._body(params, batch), self._unembed(params),
-                       params["final_norm"], batch, self.cfg.norm_eps, count)
+        """Mean next-token cross-entropy -> (loss, {"loss", "tokens"}), on
+        the parameters' shards (``models.transformer.TransformerLM.loss``
+        says how)."""
+        params = tp.localize(params)
+        sp = tp.seq_axis(batch["tokens"].shape[1])
+        head, vdim = self._head(params)
+        return lm_loss(self._body(params, batch, sp), head,
+                       params["final_norm"], batch, self.cfg.norm_eps, count,
+                       vocab_dim=vdim, sp=sp)
 
     # ---------------- serve ----------------
     def cache_spec(self, batch_size: int, max_len: int = 0

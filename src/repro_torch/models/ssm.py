@@ -188,11 +188,13 @@ def mamba_forward(p: Params, x, cfg: ModelConfig, *, initial_state=None,
     (the state those heads), the gated norm over the whole ``d_inner``
     (its sum of squares all-reduced), and ``out_proj`` is row-parallel;
     with ``sp`` (``x`` the whole sequence of a sequence-parallel
-    residual) the output is the rank's block of the sequence."""
+    residual, gathered by ``tp.gather_seq``) the output is the rank's
+    block of the sequence.  Every collective carries its gradient
+    (``distributed.tp``), so ``kernel=False`` trains on the shards."""
     b, s, d = x.shape
     di, n, nh, ph = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
     cdt = x.dtype
-    zxbcdt = tp.col_full(x, p["in_proj"])
+    zxbcdt = tp.col_full(x, p["in_proj"], sp)
     z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * n, nh], dim=-1)
     cw, c_dim, c_ax = tp.part(p["conv_w"])
     c_ax = c_ax if c_dim is not None else None
@@ -206,6 +208,9 @@ def mamba_forward(p: Params, x, cfg: ModelConfig, *, initial_state=None,
     xbc_conv = tp.gather(F.silu(xbc_conv), -1, c_ax)
     xs, B, C = torch.split(xbc_conv, [di, n, n], dim=-1)
     A_log, D, dt_bias, h_ax = _heads(p)
+    # B and C are whole and every rank's heads read them: their gradient
+    # is the ranks' parts summed
+    B, C = tp.sum_grad(B, h_ax), tp.sum_grad(C, h_ax)
     dt = F.softplus(tp.block(dt_raw, -1, h_ax).to(F32) + dt_bias)  # [B,S,H]
     A = -torch.exp(A_log)                                       # [H]
     xh = tp.block(xs.reshape(b, s, nh, ph), 2, h_ax)

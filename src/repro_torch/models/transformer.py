@@ -29,20 +29,19 @@ cross-entropy one sequence chunk at a time, each chunk checkpointed, as
 ``src/repro/models/transformer.py:23-63`` does.
 
 On a device mesh (``distributed.sharding``; ``launch.train --mesh
-elastic``) the parameters are DTensors.  ``forward`` and ``loss`` gather
-each at their entry (``sharding.unshard``: an all-gather of every
-sharded parameter, the embedding table's too; the backward takes the
-local slice) and run the blocks on plain tensors, the MoE expert weights
-kept sharded for expert parallelism (``layers._moe_shardmap``).
-``prefill`` and ``decode_step`` compute tensor-parallel over ``model``
-on the parameters' shards instead (``distributed.tp``, as the
-reference's GSPMD does from the same specs): the embedding and head
-vocab-parallel, q/k/v and the MLP's gate column-parallel, ``wo``
-row-parallel (flash on the rank's heads where the model axis divides
-Hq), and under mesh rules with ``seq_parallel`` the prefill's residual
-sequence-parallel between blocks (the reference's ``shard_activation``
-sites), the MoE block taking its sequence block as expert parallelism's
-input.  A batch laid out over the data axes gives each rank its rows
+elastic``) the parameters are DTensors.  ``loss``, ``prefill`` and
+``decode_step`` compute tensor-parallel over ``model`` on the parameters'
+shards (``distributed.tp``, as the reference's GSPMD does from the same
+specs): the embedding and head vocab-parallel (the loss's cross-entropy
+on the rank's block of the vocabulary), q/k/v and the MLP's gate
+column-parallel, ``wo`` row-parallel (attention on the rank's heads
+where the model axis divides Hq), and under mesh rules with
+``seq_parallel`` the residual sequence-parallel between blocks (the
+reference's ``shard_activation`` sites), the MoE block taking its
+sequence block as expert parallelism's input; the train step's backward
+runs through the collectives' own.  ``forward`` (tests) gathers each
+parameter at its entry (``sharding.unshard``), the MoE expert weights
+kept sharded for expert parallelism (``layers._moe_shardmap``).  A batch laid out over the data axes gives each rank its rows
 (``optim.loss_and_grads`` passes the global token ``count`` to
 ``loss``), and a decode cache laid out by ``launch.specs`` attends over
 the rank's slice of the KV sequence (``layers.decode_inputs``).
@@ -53,6 +52,7 @@ import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -88,18 +88,41 @@ def _remat(fn, cfg: ModelConfig):
     return wrapped
 
 
-def chunked_ce_loss(x, unembed, labels, mask, *, chunk: int = 512,
-                    norm_w=None, eps: float = 1e-5, count=None):
+def chunked_ce_loss(x, head, labels, mask, *, chunk: int = 512,
+                    norm_w=None, eps: float = 1e-5, count=None,
+                    vocab_dim: int = 1, sp=None):
     """Memory-bounded cross-entropy over sequence chunks (``chunk`` at most
     S, halved until it divides S), each chunk checkpointed so that no more
-    than one chunk's [B, chunk, V] logits live at once.
+    than one chunk's [B, chunk, V] logits live at once (and its
+    collectives recomputed in the same order on every rank).
 
-    x: [B,S,d] (before the final norm, applied per chunk with ``norm_w``);
-    unembed: [d,V]; labels/mask: [B,S].  Logits in float32, logsumexp
-    minus the gold logit, times the mask.  Returns (mean loss, tokens):
-    the masked sum over the mask's count, or over ``count`` when given
-    (a data-parallel step's global token count; ``tokens`` stays this
-    batch's)."""
+    x: [B,S',d] before the final norm (applied per chunk with
+    ``norm_w``), its last S positions scored; head: the unembedding
+    [d,V] (``vocab_dim`` 1) or a tied embedding [V,d] (``vocab_dim`` 0);
+    labels/mask: [B,S].  Logits in float32, logsumexp minus the gold
+    logit, times the mask.  Returns (mean loss, tokens): the masked sum
+    over the mask's count, or over ``count`` when given (a data-parallel
+    step's global token count; ``tokens`` stays this batch's).
+
+    A head cut over the vocabulary on the model axis (``distributed.tp``)
+    gives the rank's [B, chunk, V/m] logits: the max all-reduced (MAX),
+    the sum of exponentials and the gold logit, from the rank that owns
+    the label, all-reduced (SUM) in float32; the normed input enters them
+    through a float32 all-reduce of its gradient.  With ``sp`` ``x`` is
+    the rank's block of a sequence-parallel residual: the norm runs on it
+    (its weight's gradient summed over the model axis) and the whole
+    sequence is gathered (``tp.gather_seq``, whose reduce-scatter sums
+    the input gradient)."""
+    wl, dim, ax = tp.part(head)
+    if dim is not None and dim != vocab_dim:
+        raise ValueError("the loss head is cut over d_model; the rules cut "
+                         "it over the vocabulary or leave it whole")
+    cut = ax if dim is not None else None
+    head = wl.T if vocab_dim == 0 else wl
+    if sp is not None:
+        x = tp.gather_seq(L.seq_norm(x, norm_w, eps, sp), sp)
+        x, norm_w = (x if cut is not None else tp.own(x, sp)), None
+    x = x[:, x.shape[1] - labels.shape[1]:]
     s = x.shape[1]
     chunk = min(chunk, s)
     while s % chunk:
@@ -108,9 +131,15 @@ def chunked_ce_loss(x, unembed, labels, mask, *, chunk: int = 512,
     def body(xi, li, mi):
         if norm_w is not None:
             xi = L.rms_norm(xi, norm_w, eps)
-        logits = (xi @ unembed.to(xi.dtype)).to(F32)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
+        if cut is None:
+            logits = (xi @ head.to(xi.dtype)).to(F32)
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, li[..., None].long())[..., 0]
+        else:
+            if sp is None:
+                xi = tp.sum_grad(xi, cut)
+            logits = (xi @ head.to(xi.dtype)).to(F32)
+            lse, gold = _vocab_parallel_lse_gold(logits, li, cut)
         return ((lse - gold) * mi).sum(), mi.sum()
 
     tot = cnt = torch.zeros((), dtype=F32, device=x.device)
@@ -121,16 +150,37 @@ def chunked_ce_loss(x, unembed, labels, mask, *, chunk: int = 512,
     return tot / torch.clamp(cnt if count is None else count, min=1.0), cnt
 
 
-def lm_loss(x, unembed, final_norm, batch, eps: float, count=None):
+def _vocab_parallel_lse_gold(logits, labels, ax):
+    """(logsumexp, gold logit) over the whole vocabulary from the rank's
+    block of it (``logits`` [..., V/m] float32): the max all-reduced
+    (MAX, outside the gradient: it cancels), the sum of exponentials and
+    the label's logit — the owning rank's, the others adding 0 —
+    all-reduced in float32 (their backward the identity, so the logits'
+    gradient is the local softmax minus the local one-hot)."""
+    n = logits.shape[-1]
+    mx = logits.detach().amax(dim=-1, keepdim=True).contiguous()
+    dist.all_reduce(mx, op=dist.ReduceOp.MAX, group=ax.group)
+    se = tp.sum_f32(torch.exp(logits - mx).sum(dim=-1), ax)
+    idx = labels.long() - ax.rank * n
+    mine = (idx >= 0) & (idx < n)
+    g = torch.gather(logits, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
+    gold = tp.sum_f32(torch.where(mine, g, torch.zeros_like(g)), ax)
+    return mx[..., 0] + torch.log(se), gold
+
+
+def lm_loss(x, head, final_norm, batch, eps: float, count=None, *,
+            vocab_dim: int = 1, sp=None):
     """The families' shared loss tail: ``chunked_ce_loss`` of the body's
-    output ``x`` against ``batch["labels"]`` (``batch["mask"]``, else all
+    output ``x`` (with ``sp`` the rank's block of a sequence-parallel
+    residual) against ``batch["labels"]`` (``batch["mask"]``, else all
     ones; over ``count`` tokens when given) -> (loss, {"loss",
     "tokens"})."""
     labels, mask = batch["labels"], batch.get("mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=F32, device=x.device)
-    loss, cnt = chunked_ce_loss(x, unembed, labels, mask, norm_w=final_norm,
-                                eps=eps, count=count)
+    loss, cnt = chunked_ce_loss(x, head, labels, mask, norm_w=final_norm,
+                                eps=eps, count=count, vocab_dim=vocab_dim,
+                                sp=sp)
     return loss, {"loss": loss, "tokens": cnt}
 
 
@@ -171,10 +221,11 @@ class TransformerLM:
                 gen, (cfg.d_model, cfg.d_model), self.pdt)
         return params
 
-    def _unembed(self, params):
+    def _head(self, params):
+        """(the loss head's weight, its vocabulary dim)."""
         if self.cfg.tie_embeddings:
-            return params["embed"].T
-        return params["unembed"]
+            return params["embed"], 0
+        return params["unembed"], 1
 
     def _embed(self, params, tokens):
         return tp.embed(params["embed"], tokens, self.cdt)
@@ -203,16 +254,20 @@ class TransformerLM:
         return tp.logits(x, params["unembed"], 1)
 
     # ---------------- forward / train ----------------
-    def _body(self, params, x):
-        """Every layer (plain attention, each block under ``_remat``)."""
+    def _body(self, params, x, sp=None):
+        """Every layer (plain attention, each block under ``_remat``); with
+        ``sp`` ``x`` is the rank's block of a sequence-parallel residual
+        of ``s`` positions."""
         cfg = self.cfg
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        s = x.shape[1] * (sp.size if sp is not None else 1)
+        positions = torch.arange(s, device=x.device)[None, :]
 
         def block(h, lp):
-            h = h + L.attn_forward(lp["attn"],
-                                   L.rms_norm(h, lp["ln1"], cfg.norm_eps),
-                                   cfg, positions, causal=True)
-            return h + self._ffn(lp, L.rms_norm(h, lp["ln2"], cfg.norm_eps))
+            hn = tp.gather_seq(L.seq_norm(h, lp["ln1"], cfg.norm_eps, sp), sp)
+            h = h + L.attn_forward(lp["attn"], hn, cfg, positions,
+                                   causal=True, sp=sp)
+            return h + self._ffn(
+                lp, L.seq_norm(h, lp["ln2"], cfg.norm_eps, sp), sp)
 
         block = _remat(block, cfg)
         for lp in params["layers"]:
@@ -231,13 +286,16 @@ class TransformerLM:
         """Mean next-token cross-entropy of ``batch`` (tokens, labels[,
         mask][, patch_embeds]) -> (loss, {"loss", "tokens"}); for ``vlm``
         over the text positions only; the masked sum over ``count`` tokens
-        when given (``chunked_ce_loss``)."""
-        params = unshard(params, keep=is_moe_expert)
-        x = self._body(params, self._embed_inputs(params, batch))
-        if self.cfg.family == "vlm":
-            x = x[:, -batch["labels"].shape[1]:]
-        return lm_loss(x, self._unembed(params), params["final_norm"], batch,
-                       self.cfg.norm_eps, count)
+        when given (``chunked_ce_loss``).  On the parameters' shards
+        (tensor-parallel over ``model``, the residual sequence-parallel
+        under mesh rules with ``seq_parallel``)."""
+        params = tp.localize(params)
+        x = self._embed_inputs(params, batch)
+        sp = tp.seq_axis(x.shape[1])
+        x = self._body(params, tp.block(x, 1, sp), sp)
+        head, vdim = self._head(params)
+        return lm_loss(x, head, params["final_norm"], batch,
+                       self.cfg.norm_eps, count, vocab_dim=vdim, sp=sp)
 
     # ---------------- serve ----------------
     @torch.no_grad()

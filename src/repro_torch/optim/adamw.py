@@ -25,15 +25,21 @@ a block list (``tree.STACKED``): the same leaves as the reference.
 On a device mesh (``launch.train --mesh elastic``) the parameters, ``m``
 and ``v`` are DTensors laid out by ``distributed.sharding.
 param_shardings``; ``step`` and the batch are replicated, as the JAX
-launcher passes them.  The gradients come back as DTensors in the
-parameters' layout (``loss_and_grads``; the models gather the parameters
-at their entry), and every AdamW update is elementwise, so it runs on
-each rank's local shards.  ``global_norm`` is the norm of the full
-tensors: each leaf's sum of squares over its local shard, one SUM
-all-reduce of the sharded leaves' sums over their mesh dims' groups,
-then the leaves' sums added in tree order — on a world of one rank the
-single-device sums, bit for bit.  Compression (``int8_ef``) quantises
-the full gradients, as the reference's blocks span whole leaves.
+launcher passes them.  The models' ``loss`` computes tensor-parallel on
+the parameters' shards (``distributed.tp``), so the gradients come back
+as DTensors in the parameters' layout (``loss_and_grads``): a leaf cut
+over ``model`` holds the gradient of its own part, a replicated leaf the
+whole gradient, equal on every model rank (the collectives' backward
+sums the ranks' parts where a rank computed on its block: the norms
+under sequence parallelism, a tensor that rank-partial products read).
+Every AdamW update is elementwise, so it runs on each rank's local
+shards.  ``global_norm`` is the norm of the full tensors: each leaf's
+sum of squares over its local shard, one SUM all-reduce of the cut
+leaves' sums over their mesh dims' groups (a replicated leaf counted
+once), then the leaves' sums added in tree order — on a world of one
+rank the single-device sums, bit for bit.  Compression (``int8_ef``)
+quantises the full gradients, as the reference's blocks span whole
+leaves.
 
 The data axes (the reference's ``jax.jit(step, in_shardings=(state_sh,
 batch_sh))`` with ``launch.specs.state_shardings``/``batch_shardings``).

@@ -19,8 +19,12 @@ penalty grid, a store round trip) equals the CPU's field for field.  The
 dry run's per-device step traced on the meta device counts the card's
 kernel launches and the same FLOPs.  Two gloo ranks on the card run the
 data-parallel ZeRO-1 step and the sequence-sharded decode as world 1
-does, and the tensor-parallel prefill and decode of the reduced dense and
-ssm configs.
+does, and the tensor-parallel prefill, decode and train steps of the
+reduced dense and ssm configs; the bf16 row-parallel product's
+float32-output GEMM and its backward equal autograd's through the same
+bf16 operands.  Every ``examples/torch_*.py`` runs on the
+card at a small size (the quickstart's results equal to the CPU's field
+for field, the DS_PGM dead-band aside).
 """
 import dataclasses
 
@@ -831,3 +835,218 @@ def test_tp_serving_two_ranks_on_card_equal_world_one(card, tmp_path):
             torch.testing.assert_close(a, w, rtol=0,
                                        atol=1e-5 * float(w.abs().max()))
             assert torch.equal(a.argmax(-1), w.argmax(-1)), arch
+
+
+def _tp_train(card, arch, mesh=None):
+    """Two AdamW steps of the reduced ``arch`` on the card from seed 9's
+    weights, tensor-parallel on ``mesh`` under its rules (world 1 when
+    None): the losses and the full final parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import specs as S
+    from repro_torch.models import get_model, init_params
+    from repro_torch.optim import OptConfig, init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(arch).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(9), "cpu")
+    params = {k: v for k, v in _to_card(params, card).items()}
+    g = torch.Generator().manual_seed(10)
+    toks = torch.randint(0, cfg.vocab, (2, 17), generator=g).to(card)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    ocfg = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    state = init_train_state(params, ocfg)
+    rules = None
+    if mesh is not None:
+        state = S.lay_out(state, mesh, S.state_shardings(mesh, cfg, state))
+        rules = S.make_rules(mesh, cfg)
+    step = make_train_step(get_model(cfg), ocfg)
+    losses = []
+    with sh.activation_rules(rules):
+        for _ in range(2):
+            state, met = step(state, batch)
+            losses.append(float(met["loss"]))
+    return losses, [p.cpu() for p in tree_leaves(sh.unshard(state["params"]))]
+
+
+def _to_card(tree, card):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda x: x.to(card), tree)
+
+
+def _tp_train_world(rank, world, out_dir):
+    from repro_torch.launch.mesh import make_mesh
+    card = torch.device("cuda", 0)
+    mesh = make_mesh((1, 2), ("data", "model"))
+    res = {arch: _tp_train(card, arch, mesh)
+           for arch in ("smollm-135m", "mamba2-370m")}
+    if rank == 0:
+        torch.save(res, f"{out_dir}/tp_train.pt")
+
+
+@pytest.mark.cuda
+def test_tp_training_two_ranks_on_card_equal_world_one(card, tmp_path):
+    """Two gloo ranks on the card, (1, 2) under its rules: two AdamW steps
+    of the reduced smollm-135m and mamba2-370m with tensor-parallel,
+    sequence-parallel blocks and the vocab-parallel cross-entropy, against
+    world 1 on the card: losses within 1e-4 relative, parameters within
+    2e-4 (the mesh's gates)."""
+    from repro_torch.launch.mesh import run_world
+    run_world(_tp_train_world, 2, tmp_path / "store", args=(str(tmp_path),),
+              device="cuda", backend="gloo", timeout=300)
+    res = torch.load(tmp_path / "tp_train.pt")
+    for arch, (losses, params) in res.items():
+        want_losses, want = _tp_train(card, arch)
+        np.testing.assert_allclose(losses, want_losses, rtol=1e-4)
+        for a, w in zip(params, want):
+            torch.testing.assert_close(a, w, rtol=2e-4, atol=2e-4)
+
+
+def _rms_tol(want):
+    """bf16's relative tolerance, and an absolute one of 1e-3 of ``want``'s
+    root mean square for the entries that cancel towards zero."""
+    return dict(rtol=1.6e-2,
+                atol=1e-3 * float(want.double().pow(2).mean().sqrt()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [288, 768])
+def test_partial_bf16_backward_equals_autograd(card, k):
+    """``tp._partial`` of bf16 operands on the card — one GEMM with a
+    float32 output, its backward ``tp._PartialMM`` — at smollm-135m's
+    row-parallel products on two ranks (attention's ``wo``, k = 288; the
+    MLP's, k = 768): the output within float32 rounding of the exact
+    product, and ``dh`` and ``dw`` bf16 and within bf16 rounding both of
+    autograd's through ``h @ w`` of the same bf16 operands and of the
+    float64 products of the bf16 gradient."""
+    from repro_torch.distributed import tp
+    g = torch.Generator().manual_seed(k)
+    h0 = torch.randn(2, 128, k, generator=g).to(card, torch.bfloat16)
+    w0 = (torch.randn(k, 576, generator=g) / k ** 0.5).to(card,
+                                                          torch.bfloat16)
+    c = torch.randn(2, 128, 576, generator=g).to(card)
+    h, w = h0.clone().requires_grad_(), w0.clone().requires_grad_()
+    y = tp._partial(h, w)
+    assert y.dtype == torch.float32
+    assert type(y.grad_fn).__name__ == "_PartialMMBackward"
+    (y * c).sum().backward()
+    hr, wr = h0.clone().requires_grad_(), w0.clone().requires_grad_()
+    ((hr @ wr).float() * c).sum().backward()
+    exact = h0.double() @ w0.double()
+    torch.testing.assert_close(y.double(), exact, rtol=1e-5,
+                               atol=1e-5 * float(exact.abs().max()))
+    gb = c.to(torch.bfloat16).double().reshape(-1, 576)
+    truth = {"dh": (gb @ w0.double().T).reshape(h0.shape),
+             "dw": h0.double().reshape(-1, k).T @ gb}
+    for name, got, want in (("dh", h.grad, hr.grad), ("dw", w.grad, wr.grad)):
+        assert got.dtype == torch.bfloat16, name
+        torch.testing.assert_close(got, want, **_rms_tol(want), msg=name)
+        torch.testing.assert_close(got.double(), truth[name],
+                                   **_rms_tol(truth[name]), msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the examples on the card (ROADMAP C-gap-2)
+# ---------------------------------------------------------------------------
+
+def _example(name: str):
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent.parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _ds_pgm_gaps(costs, rhos, M, allowed=None):
+    """The relative gap between the two best DS_PGM prefix costs of each
+    row of exclusion probabilities ``rhos`` [R, n] (host NumPy; the FNO
+    tables choose among the ``allowed`` caches)."""
+    r = np.clip(rhos, 1e-12, 1.0 - 1e-12)
+    key = costs[None, :] / -np.log(r)
+    c_b = np.broadcast_to(costs, r.shape)
+    if allowed is not None:
+        key = np.where(allowed, key, np.inf)
+        c_b = np.where(allowed, c_b, np.inf)
+        r = np.where(allowed, r, 1.0)
+    order = np.argsort(key, axis=1, kind="stable")
+    csum = np.cumsum(np.take_along_axis(c_b, order, 1), axis=1)
+    lprod = np.cumsum(np.log(np.take_along_axis(r, order, 1)), axis=1)
+    phi = np.concatenate([np.full((r.shape[0], 1), M),
+                          csum + M * np.exp(lprod)], axis=1)
+    two = np.sort(phi, axis=1)[:, :2]
+    return (two[:, 1] - two[:, 0]) / np.maximum(np.abs(two[:, 0]), 1.0)
+
+
+@pytest.mark.cuda
+def test_example_quickstart_card_equals_cpu(card):
+    """``examples/torch_quickstart.py`` on the card and on the CPU: every
+    policy's ``SimResult`` field for field.  A DS_PGM table of the run
+    may differ between the two only inside the 1e-12 dead-band (rows
+    whose two best prefix costs nearly tie); the policy that reads such a
+    table (``fna`` the FNA one, ``fno`` the CS_FNO one) is then left out,
+    while ``pi`` (no table) and ``fna_cal`` (its tables built on the
+    host) are compared always."""
+    from repro_torch.cachesim import RunReport
+    from repro_torch.core.batched import selection_tables
+    n = 6000
+    got = _example("torch_quickstart").main(["--requests", str(n)])
+    want = _example("torch_quickstart").main(["--device", "cpu",
+                                              "--requests", str(n)])
+    cfg = SimConfig(n_caches=3, cache_size=2_000, costs=(1.0, 2.0, 3.0),
+                    miss_penalty=100.0, bpe=14.0, update_interval=512)
+    rep = RunReport()
+    run_policies(get_trace("gradle", n, seed=0), cfg, ("pi",), device=card,
+                 report=rep)
+    st = rep.system
+    d = st.device_arrays()
+    costs, n = np.asarray(cfg.costs, np.float64), cfg.n_caches
+    bits = ((np.arange(1 << n)[:, None] >> np.arange(n)[None, :]) & 1) > 0
+    rhos = np.where(bits[None], st.pi_v[:, None, :],
+                    st.nu_v[:, None, :]).reshape(-1, n)
+    differ = {}
+    for fno in (False, True):
+        on_card = selection_tables(costs, d["pi"], d["nu"], cfg.miss_penalty,
+                                   fno=fno).cpu().numpy().reshape(-1, n)
+        on_cpu = selection_tables(costs, torch.as_tensor(st.pi_v),
+                                  torch.as_tensor(st.nu_v), cfg.miss_penalty,
+                                  fno=fno).numpy().reshape(-1, n)
+        rows = np.flatnonzero((on_card != on_cpu).any(axis=1))
+        differ[fno] = rows.size > 0
+        if rows.size:           # a differing row: a near-tie of the two best
+            allowed = np.tile(bits, (len(st.pi_v), 1))[rows] if fno else None
+            gaps = _ds_pgm_gaps(costs, rhos[rows], cfg.miss_penalty, allowed)
+            assert (gaps <= 1e-12).all(), (fno, gaps.max())
+    assert set(got) == set(want)
+    reads = {"fna": False, "fno": True}     # the DS_PGM table a policy reads
+    compared = [p for p in want if p not in reads or not differ[reads[p]]]
+    assert {"pi", "fna_cal"} <= set(compared), compared
+    for p in compared:
+        assert dataclasses.asdict(got[p]) == dataclasses.asdict(want[p]), p
+
+
+@pytest.mark.cuda
+def test_example_scenario_sweep_on_card(card):
+    cells_ = _example("torch_scenario_sweep").main(["hetero_tiers", "3000"])
+    assert cells_ and all("pi" in c["cost"] for c in cells_)
+
+
+@pytest.mark.cuda
+def test_example_serve_prefix_cache_on_card(card):
+    out = _example("torch_serve_prefix_cache").main(["--requests", "12"])
+    assert set(out) == {"fno", "fna", "fna_cal", "pi"}
+    assert all(st.requests == 12 and st.prefills >= 1
+               for st in out.values())
+
+
+@pytest.mark.cuda
+def test_example_train_lm_on_card(card):
+    assert _example("torch_train_lm").main(["--steps", "3"]) == 0
+
+
+@pytest.mark.cuda
+def test_example_elastic_restart_on_card_is_bit_exact(card):
+    loss = _example("torch_elastic_restart").main(["--steps", "6",
+                                                   "--kill-at", "3"])
+    assert np.isfinite(loss)

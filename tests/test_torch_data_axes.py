@@ -611,20 +611,29 @@ def test_dry_run_records_the_data_axes(shape_name, tmp_path):
     dep = rec["departures"]
     assert all(dep[k] is True for k in ("zero1", "expert_parallel",
                                         "kv_cache_sequence_sharded",
-                                        "dp_gradient_reduce", "tp_serving"))
-    assert dep["replicated_blocks"].startswith("train step:")
+                                        "dp_gradient_reduce", "tp_serving",
+                                        "tp_training"))
+    assert "replicated_blocks" not in dep
     coll = rec["collectives"]
     cfg, shape = get_config(arch), get_shape(shape_name)
     if shape.kind == "train":
         # every leaf of smollm-135m folds over data 16: the reduce-scatter
-        # carries each rank's whole float32 gradient once
+        # carries each rank's whole float32 gradient once, beside the
+        # tensor-parallel step's float32 sequence reduce-scatters of the
+        # rank's tokens [B, S, d]: a layer's two row-parallel products
+        # and the backward of its two sequence gathers, the attention's
+        # product once more where full remat recomputes the block (the
+        # recomputation stops at the last tensor the backward reads), and
+        # the final norm's gather's backward
         with fake_world(256):
             mesh = make_production_mesh(device_type="cpu")
             _, args = dryrun.build_step(cfg, shape, mesh,
                                         torch.device("meta"))
             local = sum(sh.local(p).numel() * 4
                         for p in tree_leaves(args[0]["params"]))
-        assert coll["reduce-scatter"] == local
+        tokens = rec["per_device_batch"] * shape.seq_len
+        seq = (5 * cfg.n_layers + 1) * tokens * cfg.d_model * 4
+        assert coll["reduce-scatter"] == local + seq
         assert coll["all-gather"] > 0
     elif shape.kind == "decode":
         # per layer, row and mesh dim cutting the sequence (model; at

@@ -23,7 +23,8 @@ against the port's own world of one:
     sums);
   * (f) without a mesh, prefill and decode bit for bit as before the
     tensor-parallel path (digests of their outputs);
-  * (g) the new collectives refuse a gradient;
+  * (g) the collectives' backward, on 2 gloo ranks against autograd
+    through the same function computed whole at world 1;
   * the dry run on the meta device: the records' new ``departures``, and
     prefill and decode records whose all-gathers are the activations'
     alone (no parameter gathered).
@@ -479,24 +480,112 @@ def test_ssm_cache_laid_out_as_cache_shardings(batch, local_rows):
             S.lay_out(cache, mesh, {**specs, "state": ()})
 
 
-@pytest.mark.parametrize("fn", ["gather", "sum_f32", "scatter_seq",
-                                "gather_seq"])
-def test_collectives_refuse_grad(fn):
-    """(g) a tensor that requires a gradient is refused before any
-    collective runs (no process group is needed to see it)."""
+#: (g) the collectives whose backward the tensor-parallel train step uses
+COLLECTIVES = ("gather", "gather_seq", "sum_f32", "scatter_seq", "sum_grad",
+               "embed", "block")
+
+
+def _collective_inputs():
+    """x [2, 4, 6], w [6, 6] and a vocabulary table [8, 6], float32 (the
+    collectives' sums are float32), drawn from seed 31."""
+    g = torch.Generator().manual_seed(31)
+    return (torch.randn(2, 4, 6, generator=g), torch.randn(6, 6, generator=g),
+            torch.randn(8, 6, generator=g))
+
+
+def _collective_case(fn, x, w, table, ax):
+    """(this rank's loss, the tensors whose gradients are compared) of
+    collective ``fn`` on this rank's parts of ``x``, ``w`` and ``table``
+    (``ax`` None: the whole computation at world 1).  Every loss is a
+    nonlinear function of the collective's output; where the output is a
+    rank's part the ranks' losses add up to world 1's."""
     from repro_torch.distributed import tp
-    ax = tp.Axis(None, 2, 0)
-    x = torch.ones(2, 4, 3, requires_grad=True)
-    call = {"gather": lambda: tp.gather(x, -1, ax),
-            "sum_f32": lambda: tp.sum_f32(x, ax),
-            "scatter_seq": lambda: tp.scatter_seq(x, ax),
-            "gather_seq": lambda: tp.gather_seq(x, ax)}[fn]
-    with pytest.raises(ValueError, match="no backward"):
-        call()
-    with torch.no_grad():
-        with pytest.raises(Exception) as err:   # refused no more: it
-            call()                              # reaches the (absent) group
-    assert "no backward" not in str(err.value)
+
+    def blk(t, dim):
+        return t if ax is None else t.chunk(ax.size, dim)[ax.rank]
+    x, w = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    if fn == "gather":          # the rank's columns -> a replicated whole
+        xl = blk(x, -1).detach().requires_grad_(True)
+        y = tp.gather(xl, -1, ax)
+        return (torch.sin(y) * y).sum(), [xl]
+    if fn == "gather_seq":      # a sequence block -> rank-partial products
+        xl = blk(x, 1).detach().requires_grad_(True)
+        wl = blk(w, 1).detach().requires_grad_(True)
+        y = tp.gather_seq(xl, ax) @ wl
+        return torch.tanh(y).sum(), [xl, wl]
+    if fn in ("sum_f32", "scatter_seq"):    # row-parallel partial sums
+        xl = blk(x, -1).detach().requires_grad_(True)
+        wl = blk(w, 0).detach().requires_grad_(True)
+        part = xl @ wl
+        y = tp.sum_f32(part, ax) if fn == "sum_f32" else \
+            (tp.scatter_seq(part, ax) if ax is not None else part)
+        return torch.tanh(y).square().sum(), [xl, wl]
+    if fn == "sum_grad":        # a replicated input of the rank's columns
+        wl = blk(w, 1).detach().requires_grad_(True)
+        y = tp.sum_grad(x, ax) @ wl
+        return torch.tanh(y).sum(), [x, wl]
+    if fn == "block":           # the rank's block of a replicated tensor
+        y = tp.block(x @ w, 1, ax)
+        return torch.tanh(y).sum(), [x, w]
+    # embed: the tied vocabulary-parallel lookup
+    tl = blk(table, 0).detach().requires_grad_(True)
+    tokens = torch.tensor([[0, 7, 3, 4], [5, 2, 2, 6]])
+    if ax is None:
+        y = tp.embed(tl, tokens, torch.float32)
+    else:
+        from torch.distributed.tensor import DTensor, Shard
+        from repro_torch.distributed import sharding as sh
+        mesh = sh.current_rules().mesh
+        tw = DTensor.from_local(tl, mesh, (Shard(0),), run_check=False)
+        y = tp.embed(tw, tokens, torch.float32)
+    return (torch.cos(y) * y).sum(), [tl]
+
+
+def _collective_world(rank, world, out_dir):
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import tp
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((2,), ("model",))
+    ax = tp.mesh_axis(mesh, "model")
+    res = {}
+    with sh.activation_rules(sh.MeshRules(mesh, ())):
+        for fn in COLLECTIVES:
+            loss, leaves = _collective_case(fn, *_collective_inputs(), ax)
+            res[fn] = [g.detach() for g in torch.autograd.grad(loss, leaves)]
+    torch.save(res, Path(out_dir) / f"coll_{rank}.pt")
+
+
+@pytest.fixture(scope="module")
+def collective_world(tmp_path_factory):
+    from repro_torch.launch.mesh import run_world
+    out = tmp_path_factory.mktemp("collectives")
+    run_world(_collective_world, 2, out / "store", args=(str(out),),
+              device="cpu", timeout=WORLD_TIMEOUT)
+    return [torch.load(out / f"coll_{r}.pt") for r in range(2)]
+
+
+@pytest.mark.parametrize("fn", COLLECTIVES)
+def test_collective_backward_matches_world_one(collective_world, fn):
+    """(g) each collective's backward on 2 gloo ranks: every rank's
+    gradients equal to its part of autograd's through the same function
+    computed whole at world 1 — the column gather's the rank's slice, the
+    sequence gather's a reduce-scatter of the rank-partial products'
+    gradients, the all-reduce's the identity, the sequence
+    reduce-scatter's an all-gather, the input all-reduce a sum of the
+    ranks' parts, the tied vocabulary-parallel embedding the rows the
+    rank owns, a block's the all-gather of the blocks' gradients."""
+    loss, leaves = _collective_case(fn, *_collective_inputs(), None)
+    whole = torch.autograd.grad(loss, leaves)
+    # the dims along which each compared tensor is the rank's part
+    dims = {"gather": [-1], "gather_seq": [1, 1], "sum_f32": [-1, 0],
+            "scatter_seq": [-1, 0], "sum_grad": [None, 1], "embed": [0],
+            "block": [None, None]}[fn]
+    for rank, res in enumerate(collective_world):
+        for got, want, dim in zip(res[fn], whole, dims):
+            if dim is not None:
+                want = want.chunk(2, dim)[rank]
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6,
+                                       msg=f"{fn} rank {rank}")
 
 
 # --------------------------------------------------------------------------
@@ -506,8 +595,8 @@ def test_collectives_refuse_grad(fn):
 @pytest.mark.parametrize("shape_name", ["train_4k", "prefill_32k",
                                         "decode_32k"])
 def test_dry_run_serving_gathers_no_parameter(shape_name, tmp_path):
-    """smollm-135m on the single mesh: the departures name the train step
-    alone; a prefill's all-gathers are the normed sequence (twice a
+    """smollm-135m on the single mesh: the departures name tensor-parallel
+    training and serving; a prefill's all-gathers are the normed sequence (twice a
     layer), the q/k/v columns, the last token and the logits, a decode's
     the q/k/v columns and the logits — no parameter; the arguments are
     the parameters' shards."""
@@ -517,7 +606,7 @@ def test_dry_run_serving_gathers_no_parameter(shape_name, tmp_path):
     rec = dryrun.run_cell(arch, shape_name, "single", tmp_path)
     dep = rec["departures"]
     assert dep == dryrun.DEPARTURES and dep["tp_serving"] is True
-    assert dep["replicated_blocks"].startswith("train step:")
+    assert dep["tp_training"] is True and "replicated_blocks" not in dep
     cfg, shape = get_config(arch), get_shape(shape_name)
     coll = rec["collectives"]
     if shape.kind == "train":

@@ -10,8 +10,14 @@ the CPU, against the JAX reference's.
     the reference, one-shot and chunked (``iter_trace_chunks``,
     ``stream_trace_info``), with subsampling;
   * ``get_trace`` resolves ``file:<path>`` and registered aliases;
-  * ``chunk_size`` is rejected at the call, by name.
+  * ``chunk_size`` is rejected at the call, by name;
+  * the port's writer (``repro_torch.tools.make_trace_file``) writes the
+    reference tool's bytes for every shape, plain and gzipped, and its
+    ``--samples`` the committed sample logs byte for byte.
 """
+import importlib.util
+import os
+import subprocess
 import sys
 from pathlib import Path
 
@@ -21,9 +27,9 @@ import pytest
 import repro.cachesim.tracefiles as ref_tf
 import repro_torch.cachesim.tracefiles as tf
 from repro_torch.cachesim import get_scenario, get_trace
+from repro_torch.tools.make_trace_file import write_trace_file
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
-from make_trace_file import write_trace_file  # noqa: E402
+ROOT = Path(__file__).resolve().parent.parent
 
 DATA = Path(__file__).parent / "data"
 SAMPLES = {"sample_recency": (DATA / "sample_recency.log.gz", {}),
@@ -152,3 +158,38 @@ def test_chunk_size_rejected_at_the_call(bad, tmp_path):
     with pytest.raises(ValueError, match="chunk_size"):
         SystemTrace.compute(Simulator(SimConfig(), "cpu"),
                             get_trace("gradle", 50, seed=0), chunk_size=bad)
+
+
+def _reference_tool():
+    """The reference's ``tools/make_trace_file.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "ref_make_trace_file", ROOT / "tools" / "make_trace_file.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("fmt", ("keys", "csv"))
+@pytest.mark.parametrize("compress", (False, True))
+def test_writer_bytes_equal_reference_tool(tmp_path, trace, fmt, compress):
+    # one file name in two directories: gzip's header holds the name
+    ref = _reference_tool()
+    got = write_trace_file(trace, tmp_path / "port" / "t", fmt,
+                           compress=compress)
+    want = ref.write_trace_file(trace, tmp_path / "ref" / "t", fmt,
+                                compress=compress)
+    assert got.read_bytes() == want.read_bytes()
+
+
+def test_samples_cli_writes_the_committed_logs(tmp_path):
+    """``python -m repro_torch.tools.make_trace_file --samples -o DIR``
+    (no ``repro`` on the path) writes ``tests/data``'s files byte for
+    byte."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-m",
+                        "repro_torch.tools.make_trace_file", "--samples",
+                        "-o", str(tmp_path)], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    for name in ("sample_recency.log.gz", "sample_zipf.csv.gz"):
+        assert (tmp_path / name).read_bytes() == (DATA / name).read_bytes()
