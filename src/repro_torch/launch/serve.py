@@ -16,7 +16,12 @@ kernel, ``ssm`` (mamba2-370m) through the SSD kernel, ``hybrid``
 to dense, moe and vlm, as in the JAX launcher.  The output lines are the
 JAX launcher's, between a ``[serve] weights`` line (parameters, and the
 seconds it took to draw them) and a closing ``[serve] decoded`` line (the
-tokens decoded); the prefill seconds are taken after a device sync.  The
+tokens decoded, the wall time and the prefills' share of it); the prefill
+seconds are taken after a device sync, and ``tok/s`` divides the decoded
+tokens by the time spent in ``ServeEngine.decode``, which ends with the
+last token's copy to the host.  ``--spans PATH`` turns on the program's
+span recorder (``repro_torch.tracing``) and writes the spans to PATH as
+Chrome-trace JSON at the end.  The
 weights are drawn from seed 0 on the serving device (``init_params``),
 so ``--device cpu`` and ``--device cuda`` serve different random
 weights; the routing statistics do not depend on them.
@@ -41,6 +46,8 @@ import sys
 import time
 
 import numpy as np
+
+from repro_torch import tracing
 
 
 def _run_replay(args) -> int:
@@ -103,11 +110,21 @@ def main(argv=None) -> int:
                          "contention) or deterministic round-robin")
     ap.add_argument("--json", default="",
                     help="--replay: write the reports to this path")
+    ap.add_argument("--spans", default="", metavar="PATH",
+                    help="record the program's spans and write them to "
+                         "PATH as Chrome-trace JSON")
     args = ap.parse_args(argv)
 
-    if args.replay:
-        return _run_replay(args)
-    return _run_model(args)
+    if args.spans:
+        tracing.clear()
+        tracing.enable()
+    try:
+        return _run_replay(args) if args.replay else _run_model(args)
+    finally:
+        if args.spans:
+            tracing.disable()
+            n = tracing.write(args.spans)
+            print(f"[serve] wrote {n} spans to {args.spans}")
 
 
 def _run_model(args) -> int:
@@ -148,7 +165,7 @@ def _run_model(args) -> int:
     max_len = args.prefix_len + args.decode_steps + 2
 
     t0 = time.time()
-    prefill_s = 0.0
+    prefill_s = decode_s = 0.0
     tokens_out = 0
     for i in range(args.requests):
         pid = int(stream[i])
@@ -164,7 +181,9 @@ def _run_model(args) -> int:
 
         kv, cost = cluster.request(pid, make_kv=make_kv)
         first = np.zeros((toks.shape[0],), np.int32)
+        t1 = time.time()
         out, _ = engine.decode(kv, first, args.decode_steps)
+        decode_s += time.time() - t1
         tokens_out += out.size
         if (i + 1) % 50 == 0:
             s = cluster.stats
@@ -176,7 +195,7 @@ def _run_model(args) -> int:
     print(f"[serve] policy={args.policy} requests={s.requests} "
           f"mean-cost={s.mean_cost:.2f} hit={s.hit_ratio:.3f} "
           f"prefills={s.prefills} neg_probes={s.neg_probes} "
-          f"tok/s={tokens_out / wall:,.0f} wall={wall:.1f}s "
+          f"tok/s={tokens_out / decode_s:,.0f} wall={wall:.1f}s "
           f"(prefill {prefill_s:.1f}s)")
     print(f"[serve] decoded tokens={tokens_out} in {wall:.3f}s "
           f"(prefill {prefill_s:.3f}s)")

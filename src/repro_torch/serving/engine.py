@@ -26,6 +26,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import get_model, init_params
@@ -51,23 +52,24 @@ class ServeEngine:
         [B, S]; a KV cache holds ``max_len`` positions, ``n_patches`` more
         for ``vlm`` (the ssm family's state does not grow, so it takes no
         ``max_len``)."""
-        cfg = self.cfg
-        batch = {"tokens": torch.as_tensor(np.asarray(tokens),
-                                           dtype=torch.int64,
-                                           device=self.device)}
-        b, s = batch["tokens"].shape
-        cdt = dtype_of(cfg.dtype)
-        if cfg.family == "ssm":
-            return self.model.prefill(self.params, batch)
-        if cfg.family == "vlm":
-            batch["patch_embeds"] = torch.zeros(
-                (b, cfg.n_patches, cfg.d_model), dtype=cdt,
-                device=self.device)
-            max_len = cfg.n_patches + max_len
-        if cfg.family == "encdec":
-            batch["frames"] = torch.zeros((b, s, cfg.d_model), dtype=cdt,
-                                          device=self.device)
-        return self.model.prefill(self.params, batch, max_len=max_len)
+        with tracing.span("prefill"):
+            cfg = self.cfg
+            batch = {"tokens": torch.as_tensor(np.asarray(tokens),
+                                               dtype=torch.int64,
+                                               device=self.device)}
+            b, s = batch["tokens"].shape
+            cdt = dtype_of(cfg.dtype)
+            if cfg.family == "ssm":
+                return self.model.prefill(self.params, batch)
+            if cfg.family == "vlm":
+                batch["patch_embeds"] = torch.zeros(
+                    (b, cfg.n_patches, cfg.d_model), dtype=cdt,
+                    device=self.device)
+                max_len = cfg.n_patches + max_len
+            if cfg.family == "encdec":
+                batch["frames"] = torch.zeros((b, s, cfg.d_model), dtype=cdt,
+                                              device=self.device)
+            return self.model.prefill(self.params, batch, max_len=max_len)
 
     @torch.no_grad()
     def decode(self, cache: Cache, first_tokens, n_steps: int,
@@ -79,18 +81,22 @@ class ServeEngine:
         temperature 0, else sampled.  Works on a copy of ``cache``, which
         is left as it was (a router may hand the same prefix cache to
         many requests)."""
-        cache = {k: v.clone() if isinstance(v, torch.Tensor) else v
-                 for k, v in cache.items()}
-        toks = torch.as_tensor(np.asarray(first_tokens), dtype=torch.int64,
-                               device=self.device)
-        out = []
-        for _ in range(n_steps):
-            logits, cache = self.model.decode_step(self.params, cache, toks)
-            if temperature > 0:
-                probs = torch.softmax(logits / temperature, dim=-1)
-                toks = torch.multinomial(probs, 1, generator=generator)[:, 0]
-            else:
-                toks = torch.argmax(logits, dim=-1)
-            toks = torch.clamp(toks, 0, self.cfg.vocab - 1)
-            out.append(toks.cpu().numpy().astype(np.int32))
-        return np.stack(out, axis=1), cache
+        with tracing.span("decode"):
+            cache = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                     for k, v in cache.items()}
+            toks = torch.as_tensor(np.asarray(first_tokens),
+                                   dtype=torch.int64, device=self.device)
+            out = []
+            for _ in range(n_steps):
+                with tracing.span("decode.step"):
+                    logits, cache = self.model.decode_step(self.params,
+                                                           cache, toks)
+                    if temperature > 0:
+                        probs = torch.softmax(logits / temperature, dim=-1)
+                        toks = torch.multinomial(probs, 1,
+                                                 generator=generator)[:, 0]
+                    else:
+                        toks = torch.argmax(logits, dim=-1)
+                    toks = torch.clamp(toks, 0, self.cfg.vocab - 1)
+                    out.append(toks.cpu().numpy().astype(np.int32))
+            return np.stack(out, axis=1), cache

@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.cachesim.lru import LRUCache
 from repro_torch.core import (
     CacheView,
@@ -135,11 +136,13 @@ class PrefixCacheNode:
             return self.store.get(prefix_hash)
         return None
 
-    def insert(self, prefix_hash: int, kv_handle: object) -> None:
+    def insert(self, prefix_hash: int, kv_handle: object) -> bool:
+        """Store ``kv_handle``; returns whether the prefix was new here
+        (False: the node already held it, and only the handle changed)."""
         inserted, evicted = self.lru.put(prefix_hash)
         self.store[prefix_hash] = kv_handle
         if not inserted:
-            return
+            return False
         self.ind.cbf.add(prefix_hash)
         if evicted is not None:
             self.store.pop(evicted, None)
@@ -154,6 +157,7 @@ class PrefixCacheNode:
             self.ind.estimate_rates()
             self._since_adv = 0
             self._since_est = 0
+        return True
 
 
 @dataclass
@@ -165,6 +169,10 @@ class RouteStats:
     prefills: int = 0
     neg_probes: int = 0
     total_cost: float = 0.0
+    # misses whose prefix the designated node already held: each prefill
+    # a probe of that node would have saved (the port's own counter; the
+    # reference has no such field)
+    resident_misses: int = 0
 
     @property
     def mean_cost(self) -> float:
@@ -286,11 +294,13 @@ class PrefixServeCluster:
     def request(self, prefix_hash: int, make_kv=lambda: True):
         """Serve one request; on miss, prefill (make_kv) and place the
         result on the designated node."""
-        kv, cost, sel = self.router.route(prefix_hash)
-        if kv is None:
-            kv = make_kv()
-            dj = prefix_hash % self.cfg.n_nodes
-            self.nodes[dj].insert(prefix_hash, kv)
+        with tracing.span("route", request=self.stats.requests):
+            kv, cost, sel = self.router.route(prefix_hash)
+            if kv is None:
+                kv = make_kv()
+                dj = prefix_hash % self.cfg.n_nodes
+                if not self.nodes[dj].insert(prefix_hash, kv):
+                    self.stats.resident_misses += 1
         return kv, cost
 
     @property

@@ -1050,3 +1050,85 @@ def test_example_elastic_restart_on_card_is_bit_exact(card):
     loss = _example("torch_elastic_restart").main(["--steps", "6",
                                                    "--kill-at", "3"])
     assert np.isfinite(loss)
+
+
+#: the five stage kernels of one ``kernels.ssd`` call
+SSD_STAGES = ("ssd_cumsum_kernel", "ssd_cb_kernel", "ssd_states_kernel",
+              "ssd_carry_kernel", "ssd_out_kernel")
+
+
+@pytest.mark.cuda
+def test_spans_share_the_profilers_clock_on_card(card):
+    """With the card's activity traced, a program span and a
+    ``record_function`` around the same code start within 1 ms of each
+    other: the spans lie on the device trace's timeline as recorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch import tracing
+    x = torch.ones(1 << 16, device=card)
+    tracing.clear()
+    tracing.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                with tracing.span("clock"), record_function("clock.rf"):
+                    x.sum()
+            torch.cuda.synchronize(card)
+    finally:
+        tracing.disable()
+    mine = [s.start_ns for s in tracing.spans()]
+    tracing.clear()
+    theirs = sorted(ev.start_ns() for ev in prof.profiler.kineto_results
+                    .events() if ev.name() == "clock.rf" and
+                    ev.device_type() == DeviceType.CPU)
+    assert len(mine) == len(theirs) == 3
+    assert max(abs(a - b) for a, b in zip(mine, theirs)) < 1_000_000
+
+
+@pytest.mark.cuda
+def test_prefill_span_holds_every_ssd_stage_launch_on_card(card):
+    """Every SSD stage kernel of a mamba2-370m prefill traced on the card
+    belongs to that prefill's span: each has a launch record (the runtime
+    call with the kernel's correlation id; the ctypes-loaded library's
+    launches are traced like torch's own), and it lies inside the span,
+    which ends when the launches are enqueued."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import tracing
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServeEngine
+    cfg = get_config("mamba2-370m").reduced()
+    engine = ServeEngine(cfg, device=card,
+                         generator=torch.Generator().manual_seed(0))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (1, 64))
+    engine.prefill(toks, max_len=66)           # builds and loads the kernels
+    torch.cuda.synchronize(card)
+    tracing.clear()
+    tracing.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            engine.prefill(toks, max_len=66)
+            torch.cuda.synchronize(card)
+    finally:
+        tracing.disable()
+    (span,) = tracing.spans()
+    tracing.clear()
+    assert span.name == "prefill"
+    events = list(prof.profiler.kineto_results.events())
+    # the launch calls of the CUDA runtime (cudaLaunch*) and of its
+    # lower-level API (cuLaunch*): their correlation ids are CUPTI's, a
+    # host operator's id is another count
+    launches = {ev.correlation_id(): ev.start_ns() for ev in events
+                if ev.device_type() == DeviceType.CPU and
+                ev.name().startswith(("cudaLaunch", "cuLaunch"))}
+    stages = [ev for ev in events if ev.device_type() != DeviceType.CPU and
+              any(st in ev.name() for st in SSD_STAGES)]
+    assert len(stages) == len(SSD_STAGES) * cfg.n_layers
+    for ev in stages:
+        launched = launches.get(ev.correlation_id())
+        assert launched is not None, ev.name()
+        assert span.start_ns <= launched <= span.end_ns, ev.name()

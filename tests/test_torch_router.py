@@ -18,6 +18,7 @@
 """
 import dataclasses
 import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -199,10 +200,25 @@ def test_sequential_replay_equals_reference(monkeypatch, regime, policy):
         assert getattr(got, field) == getattr(want, field), field
 
 
+def _resident_misses(cluster, keys) -> int:
+    """Route ``keys`` through ``cluster``; returns a plain recount of the
+    misses whose key the designated node (``key % n_nodes``) held before
+    the request."""
+    n, count = len(cluster.nodes), 0
+    for key in keys:
+        held = int(key) in cluster.nodes[int(key) % n].lru
+        prefills = cluster.stats.prefills
+        cluster.request(int(key))
+        count += held and cluster.stats.prefills > prefills
+    return count
+
+
 @pytest.mark.parametrize("regime", sorted(rs.REGIMES))
 def test_cluster_route_stats_equal_field_for_field(regime):
-    """Driving the clusters directly: every ``RouteStats`` field (the
-    unrounded float sums included) and the per-node estimates agree."""
+    """Driving the clusters directly: every ``RouteStats`` field of the
+    reference (the unrounded float sums included) and the per-node
+    estimates agree; the port's own ``resident_misses`` equals a plain
+    recount."""
     cfg_r = rs.regime_config(regime, "fna")
     cfg_t = ts.regime_config(regime, "fna")
     assert dataclasses.asdict(cfg_t) == dataclasses.asdict(cfg_r)
@@ -213,11 +229,30 @@ def test_cluster_route_stats_equal_field_for_field(regime):
         stream, ref_client_streams(1_500, 1, seed=3)[0])
     for key in stream:
         want.request(int(key))
-        got.request(int(key))
-    assert dataclasses.asdict(got.stats) == dataclasses.asdict(want.stats)
+    resident = _resident_misses(got, stream)
+    got_stats = dataclasses.asdict(got.stats)
+    assert got_stats.pop("resident_misses") == resident
+    assert got_stats == dataclasses.asdict(want.stats)
     for a, b in zip(got.nodes, want.nodes):
         assert (a.ind.fp_est, a.ind.fn_est) == (b.ind.fp_est, b.ind.fn_est)
         assert list(a.lru.keys()) == list(b.lru.keys())
+
+
+def test_resident_misses_equal_a_recount_over_the_docqa_stream():
+    """The benchmark's docqa stream (4 nodes of 64 prefixes, ``fna_cal``):
+    ``RouteStats.resident_misses`` is the plain recount, and most misses
+    prefill a document its designated node already held."""
+    from repro_torch.cachesim.traces import recency_trace
+    mix = json.loads((Path(__file__).resolve().parents[1] /
+                      "bench/traffic/docqa.json").read_text())
+    st = mix["stream"]
+    labels = recency_trace(1_900, p_new=st["p_new"], window=st["window"],
+                           alpha=st["alpha"], seed=st["trace_seed"])
+    cluster = ts.PrefixServeCluster(ts.ClusterConfig(**mix["cluster"]),
+                                    seed=st["router_seed"])
+    resident = _resident_misses(cluster, labels)
+    assert cluster.stats.resident_misses == resident
+    assert resident > cluster.stats.prefills // 2
 
 
 def test_serve_main_replay_argv(tmp_path, capsys):
