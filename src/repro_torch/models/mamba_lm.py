@@ -17,6 +17,10 @@ compute tensor-parallel over ``model`` on the parameters' shards
 residual sequence-parallel under mesh rules (the train step's too). The prefill's cache
 holds the rank's SSM heads and conv channels (``tp.lay_cache``), as
 the reference's ``cache_shardings`` lays them out.
+
+``decode_step`` on plain CUDA tensors with autograd off is one CUDA graph
+replay a token (``models.decode_graph``): the eager step captured once per
+input layout; every other input runs the eager step.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from repro_torch.distributed import tp
 from repro_torch.distributed.sharding import unshard
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
+from repro_torch.models.decode_graph import DecodeGraphs
 from repro_torch.models.transformer import _remat, lm_loss
 
 F32 = torch.float32
@@ -41,6 +46,7 @@ class Mamba2LM:
         self.cfg = cfg
         self.pdt = L.dtype_of(cfg.param_dtype)
         self.cdt = L.dtype_of(cfg.dtype)
+        self._graphs = DecodeGraphs()
 
     def init(self, gen: torch.Generator) -> Params:
         """Random weights drawn from ``gen`` on its device."""
@@ -154,7 +160,13 @@ class Mamba2LM:
         """tokens: [B] -> (logits [B, V], cache).  The cache's buffers are
         updated in place (``ServeEngine.decode`` works on a copy).  A cache
         and tokens laid out by ``launch.specs`` decode each rank's rows
-        (``layers.decode_inputs``)."""
+        (``layers.decode_inputs``).  Plain CUDA inputs with autograd off
+        replay a CUDA graph of the step (``models.decode_graph``); the
+        logits returned are then a copy of the graph's."""
+        return self._graphs(self._decode_eager, params, cache, tokens)
+
+    def _decode_eager(self, params, cache, tokens):
+        """:meth:`decode_step`'s body, run eagerly (and captured)."""
         cfg = self.cfg
         params = tp.localize(params)
         loc, tokens, _, wrap = L.decode_inputs(cache, tokens)

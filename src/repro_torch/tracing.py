@@ -30,6 +30,14 @@ when the launches are enqueued, since the program does not synchronise
 and its caller does), ``decode`` (``ServeEngine.decode``, the cache's copy
 included) and ``decode.step`` (each decode iteration: the model's step,
 the sampling and the token's copy to the host, a synchronisation).
+
+Counters are process-wide integers, always on (an add against a step of
+a millisecond or more): :func:`count` adds to one, :func:`counters` reads
+them all and :func:`reset_counters` zeroes them.  The serving path's:
+``decode.graph_captures`` (a decode step that captured its layout's CUDA
+graph), ``decode.graph_replays`` (a step that replayed one) and
+``decode.eager_steps`` (a step that ran the eager body on a CUDA device),
+all counted by ``models.decode_graph.DecodeGraphs``.
 """
 from __future__ import annotations
 
@@ -37,7 +45,7 @@ import json
 import os
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 
 @dataclass
@@ -66,6 +74,7 @@ _on = False
 _spans: List[Span] = []        # in the order they started
 _stack: List[Span] = []        # the spans open now
 _request: Optional[int] = None
+_counters: Dict[str, int] = {}
 
 
 class _Open:
@@ -138,3 +147,17 @@ def write(path) -> int:
     with open(path, "w") as f:
         json.dump({"traceEvents": events, "displayTimeUnit": "ms"}, f)
     return len(events)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name``."""
+    _counters[name] = _counters.get(name, 0) + n
+
+
+def counters() -> Dict[str, int]:
+    """A copy of every counter counted since the last reset."""
+    return dict(_counters)
+
+
+def reset_counters() -> None:
+    _counters.clear()

@@ -24,7 +24,9 @@ reduced dense and ssm configs; the bf16 row-parallel product's
 float32-output GEMM and its backward equal autograd's through the same
 bf16 operands.  Every ``examples/torch_*.py`` runs on the
 card at a small size (the quickstart's results equal to the CPU's field
-for field, the DS_PGM dead-band aside).
+for field, the DS_PGM dead-band aside).  The ssm family's decode step as
+one CUDA graph (``models.decode_graph``) gives the eager body's tokens,
+its logits and caches within bf16 round-off.
 """
 import dataclasses
 
@@ -1132,3 +1134,137 @@ def test_prefill_span_holds_every_ssd_stage_launch_on_card(card):
         launched = launches.get(ev.correlation_id())
         assert launched is not None, ev.name()
         assert span.start_ns <= launched <= span.end_ns, ev.name()
+
+
+def _graph_model(card, seed=3, n_layers=3):
+    """mamba2-370m at its published widths (and vocabulary), cut to
+    ``n_layers`` blocks, weights drawn on the card from ``seed``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model, init_params
+    cfg = dataclasses.replace(get_config("mamba2-370m"), n_layers=n_layers)
+    params = init_params(cfg, torch.Generator(card).manual_seed(seed), card)
+    return cfg, get_model(cfg), params
+
+
+def _bf16_close(got, want):
+    """Within four bf16 steps of the largest value: the graph and the eager
+    body run the same operations in the same types, and the only latitude
+    is a GEMM's algorithm, which cuBLAS may pick otherwise on the capture
+    stream; each such product rounds its bf16 output once."""
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=4 * 2.0 ** -8 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_decode_graph_equals_the_eager_body_on_card(card):
+    """Greedy decode of 8 tokens from two prefix caches in a row (a stale
+    static buffer would show in the second): the graph's tokens equal the
+    eager body's, its logits and the caller's cache after every step lie
+    within bf16 round-off of eager's, and each step returns logits of its
+    own.  Counters: one capture, then replays, over both caches (one
+    layout)."""
+    from repro_torch import tracing
+    cfg, model, params = _graph_model(card)
+    g = torch.Generator(card).manual_seed(5)
+    tracing.reset_counters()
+    with torch.no_grad():
+        for doc in range(2):
+            prompt = torch.randint(0, cfg.vocab, (1, 64 + 32 * doc),
+                                   device=card, generator=g)
+            _, cache = model.prefill(params, {"tokens": prompt})
+            mine = {k: v.clone() for k, v in cache.items()}
+            tok = mine_tok = torch.zeros(1, dtype=torch.int64, device=card)
+            kept = []
+            for _ in range(8):
+                got, out = model.decode_step(params, cache, tok)
+                want, mine = model._decode_eager(params, mine, mine_tok)
+                assert out is cache and got.dtype == torch.float32
+                _bf16_close(got, want)
+                for name in cache:
+                    _bf16_close(cache[name].float(), mine[name].float())
+                tok, mine_tok = got.argmax(-1), want.argmax(-1)
+                assert torch.equal(tok, mine_tok)
+                kept.append((got, got.clone()))
+            assert len({lg.data_ptr() for lg, _ in kept}) == len(kept)
+            for lg, copy in kept:
+                assert torch.equal(lg, copy)
+    assert tracing.counters() == {"decode.graph_captures": 1,
+                                  "decode.graph_replays": 15}
+
+
+@pytest.mark.cuda
+def test_decode_graph_through_serve_engine_on_card(card):
+    """``ServeEngine.decode`` replays the graph and leaves its input cache
+    as it was; weights updated in place are read by the next replay; a new
+    ``params`` object recaptures; another layout (batch 2) takes a graph of
+    its own and a third drops the least recently used."""
+    from repro_torch import tracing
+    from repro_torch.serving import ServeEngine
+    cfg, _, params = _graph_model(card)
+    eng = ServeEngine(cfg, params=params, device=card)
+    model = eng.model
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (1, 48))
+    _, cache = eng.prefill(toks, max_len=64)
+    before = {k: v.clone() for k, v in cache.items()}
+    tracing.reset_counters()
+    first = np.zeros(1, np.int32)
+    out, _ = eng.decode(cache, first, 4)
+    for name in cache:
+        assert torch.equal(cache[name], before[name])
+    assert tracing.counters() == {"decode.graph_captures": 1,
+                                  "decode.graph_replays": 3}
+    with torch.no_grad():
+        want = []
+        mine = {k: v.clone() for k, v in cache.items()}
+        tok = torch.zeros(1, dtype=torch.int64, device=card)
+        for _ in range(4):
+            lg, mine = model._decode_eager(params, mine, tok)
+            tok = lg.argmax(-1)
+            want.append(int(tok))
+    assert out[0].tolist() == want
+
+    def step_vs_eager(p, c):
+        with torch.no_grad():
+            tok = torch.full((c["state"].shape[1],), 11, dtype=torch.int64,
+                             device=card)
+            mine = {k: v.clone() for k, v in c.items()}
+            got, _ = model.decode_step(p, {k: v.clone() for k, v in
+                                           c.items()}, tok)
+            want, _ = model._decode_eager(p, mine, tok)
+        _bf16_close(got, want)
+        return got
+
+    with torch.no_grad():
+        params["final_norm"].add_(0.25)          # in place: the same graph
+    step_vs_eager(params, cache)
+    assert tracing.counters()["decode.graph_captures"] == 1
+    _, _, other = _graph_model(card, seed=4)
+    a, b = step_vs_eager(params, cache), step_vs_eager(other, cache)
+    assert not torch.allclose(a, b)
+    assert tracing.counters()["decode.graph_captures"] == 2
+    two = {k: torch.cat([v, v], dim=1) for k, v in cache.items()}
+    step_vs_eager(other, two)
+    assert len(model._graphs._graphs) == 2
+    three = {k: torch.cat([v, v, v], dim=1) for k, v in cache.items()}
+    step_vs_eager(other, three)
+    assert len(model._graphs._graphs) == 2
+    assert tracing.counters()["decode.graph_captures"] == 4
+    assert "decode.eager_steps" not in tracing.counters()
+
+
+@pytest.mark.cuda
+def test_decode_graph_stays_off_with_grad_or_a_dispatch_mode_on_card(card):
+    """Autograd on, or a Python dispatch mode active (the dry run's cost
+    trace), runs the eager body: counted as eager steps on the card, and
+    the cost trace sees every operation."""
+    from repro_torch import tracing
+    from repro_torch.launch.cost import CostTrace
+    cfg, model, params = _graph_model(card, n_layers=2)
+    cache = model.init_cache(1, device=card)
+    tok = torch.zeros(1, dtype=torch.int64, device=card)
+    tracing.reset_counters()
+    model.decode_step(params, cache, tok)
+    with torch.no_grad(), CostTrace() as tr:
+        model.decode_step(params, cache, tok)
+    assert tr.ops > 100 and tr.flops > 0
+    assert tracing.counters() == {"decode.eager_steps": 2}
