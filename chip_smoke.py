@@ -70,25 +70,30 @@ Phases, each failing the run on any mismatch:
   8. the LM serving path: (d1) the flash-attention and SSD kernels against
      their plain versions on the card — flash at the serve shapes
      [1, 24 | 512, 9/3, 64], a long prefill [1, 2048, 9/3, 64],
-     zamba2-7b's shared attention [1, 512, 32/32, 112] (head dim 112) and
-     a seamless-m4t-medium cross attention [1, 256 q, 16/16, 64] against
-     384 keys, each causal (the top-left mask where Sq != Sk) and not,
-     float32 (CUDA-core kernel) at 2e-5 and bf16 (wgmma kernel) at 3e-2
+     zamba2-7b's shared attention [1, 512, 32/32, 112] (head dim 112),
+     zamba2-7b-instruct's [1, 4090, 32/32, 224] at its softmax scale
+     (224/2)^-1/2 and a seamless-m4t-medium cross attention [1, 256 q,
+     16/16, 64] against 384 keys, each causal (the top-left mask where
+     Sq != Sk) and not, float32 (CUDA-core kernel) at 2e-5 and bf16
+     (wgmma kernel) at 3e-2
      and, since both keep p in float32 for PV, within one bf16 ulp in at
      most 1% of the outputs; SSD at mamba2-370m's [1, 4096, 32, 64],
      n = 128, chunk 256, at its padded serve length 300, and at
-     zamba2-7b's [1, 512, 112, 64], n = 64, chunk 256, float32 at 2e-3 and
-     bf16 at 3e-2; (d2) ``python -m repro_torch.launch.serve`` (no
-     ``--replay``) at each published config (``--no-reduced``, uncut),
+     zamba2-7b's [1, 512, 112, 64], n = 64, chunk 256, and at
+     zamba2-7b-instruct's [1, 4090, 112, 64], n = 64, chunk 256, with B
+     and C in 2 groups, float32 at 2e-3 and bf16 at 3e-2; (d2) ``python
+     -m repro_torch.launch.serve`` (no ``--replay``) at each published
+     config (``--no-reduced``, uncut),
      launch counts read around each drive and checked exactly per
      prefill: smollm-135m ``--prefix-len 512`` (flash 30 a prefill),
      mamba2-370m ``--prefix-len 300`` (SSD 48, one per ``ssd_scan`` call,
      each call five kernels), granite-moe-3b-a800m ``--prefix-len 512``
      (flash 32), internvl2-1b ``--prefix-len 64`` after its 1,024 patches
      (flash 24), seamless-m4t-medium ``--prefix-len 256`` (flash 36: 12
-     encoder, 12 decoder self, 12 cross) and zamba2-7b ``--prefix-len
-     512`` (flash 13, one per shared application, SSD 81), each with its
-     prefill seconds, decode tokens per second (the tokens the launcher
+     encoder, 12 decoder self, 12 cross), zamba2-7b ``--prefix-len
+     512`` (flash 13, one per shared application, SSD 81) and
+     zamba2-7b-instruct ``--prefix-len 4090`` (flash 13, SSD 81), each
+     with its prefill seconds, decode tokens per second (the tokens the launcher
      reports decoded), weight-draw seconds and peak device memory; (d3)
      each model at its published widths in float32 with seeded weights:
      prefill and greedy decode on the card (kernels) against the CPU
@@ -101,7 +106,8 @@ Phases, each failing the run on any mismatch:
      (d4) the two kernels' times at every main-path shape beside their
      plain versions', ``scaled_dot_product_attention``'s (flash) and
      their bounds, each flash shape first held against the plain version
-     in bf16 as in (d1);
+     in bf16 as in (d1).  ``python3 chip_smoke.py --phase 8`` runs
+     phases 1 and 8 alone and prints their kernel records, no result;
   9. the training path, which reaches no kernel (plain, differentiable
      torch, as the JAX package's loss): (g1) ``python -m
      repro_torch.launch.train`` as a child process at smollm-135m's
@@ -1103,20 +1109,29 @@ def phase_topology(dev, card: str) -> None:
 
 #: flash kernel checks: (name, B, Sq, Sk, Hq, Hkv, D) — the serve shapes of
 #: smollm-135m (prefix 24, the launcher's default, and 512), a long
-#: prefill, zamba2-7b's shared attention at its serve length (D = 112) and
-#: a seamless-m4t-medium cross attention with more frames than tokens;
-#: each causal (the top-left mask where Sq != Sk) and non-causal
+#: prefill, zamba2-7b's shared attention at its serve length (D = 112), a
+#: seamless-m4t-medium cross attention with more frames than tokens and
+#: zamba2-7b-instruct's shared attention at its benchmark's document
+#: length (D = 224); each causal (the top-left mask where Sq != Sk) and
+#: non-causal
 FLASH_SHAPES = (("serve24", 1, 24, 24, 9, 3, 64),
                 ("serve512", 1, 512, 512, 9, 3, 64),
                 ("long2048", 1, 2048, 2048, 9, 3, 64),
                 ("zamba512", 1, 512, 512, 32, 32, 112),
-                ("cross256x384", 1, 256, 384, 16, 16, 64))
+                ("cross256x384", 1, 256, 384, 16, 16, 64),
+                ("instruct4090", 1, 4090, 4090, 32, 32, 224))
 #: SSD checks: (name, b, s, h, p, n, chunk) — mamba2-370m's widths at the
-#: padded serve length and at a 4096-token prefill, and zamba2-7b's at its
-#: serve length
+#: padded serve length and at a 4096-token prefill, zamba2-7b's at its
+#: serve length and zamba2-7b-instruct's at its benchmark's document length
 SSD_SHAPES = (("serve300", 1, 300, 32, 64, 128, 256),
               ("long4096", 1, 4096, 32, 64, 128, 256),
-              ("zamba512", 1, 512, 112, 64, 64, 256))
+              ("zamba512", 1, 512, 112, 64, 64, 256),
+              ("instruct4090", 1, 4090, 112, 64, 64, 256))
+#: a flash shape's or path's softmax scale where it is not D^-1/2:
+#: zamba2-7b-instruct's (224/2)^-1/2
+FLASH_SCALE = {"instruct4090": 112 ** -0.5, "zamba2-7b-instruct": 112 ** -0.5}
+#: an SSD shape's or path's B/C groups where there are more than one
+SSD_GROUPS = {"instruct4090": 2, "zamba2-7b-instruct": 2}
 #: (dtype name, tolerance): float32 at the JAX kernel tests' gates (2e-5
 #: flash, 2e-3 SSD: summation order only); bf16 at 3e-2 (o, resp. y,
 #: rounded to bf16 from float32 values that differ in summation order)
@@ -1131,9 +1146,10 @@ SSD_TOL = {"float32": 2e-3, "bfloat16": 3e-2}
 #: the full-width serve drives at the published configs: (arch, launcher
 #: flags, kernel launches a prefill).  Prefix lengths are multiples of 16
 #: (granite's ``moe_groups``); zamba2-7b's requests stay few because each
-#: cached prefix holds 149 MB of SSD state beside 28 GB of weights.  The
+#: cached prefix holds 149 MB of SSD state beside 28 GB of weights, and
+#: zamba2-7b-instruct's because each holds 1.68 GB beside 29 GB.  The
 #: request counts were cut to make room for phase 11 (``SERVE_CUT``: the
-#: counts before)
+#: counts before; zamba2-7b-instruct's drive came later, uncut)
 SERVE_DRIVES = (
     ("smollm-135m", ["--prefix-len", "512", "--requests", "64"],
      {"flash_attention": 30, "ssd_scan": 0}),
@@ -1147,10 +1163,13 @@ SERVE_DRIVES = (
      {"flash_attention": 36, "ssd_scan": 0}),
     ("zamba2-7b", ["--prefix-len", "512", "--requests", "24"],
      {"flash_attention": 13, "ssd_scan": 81}),
+    ("zamba2-7b-instruct", ["--prefix-len", "4090", "--requests", "12"],
+     {"flash_attention": 13, "ssd_scan": 81}),
 )
 SERVE_CUT = {"smollm-135m": 200, "mamba2-370m": 100,
              "granite-moe-3b-a800m": 64, "internvl2-1b": 64,
-             "seamless-m4t-medium": 64, "zamba2-7b": 48}
+             "seamless-m4t-medium": 64, "zamba2-7b": 48,
+             "zamba2-7b-instruct": 12}
 #: the flash launches of each drive's prefill, by shape: (path, B, Sq, Sk,
 #: Hq, Hkv, D, causal, launches a prefill) — internvl2-1b's prompt is its
 #: 1,024 patches and 64 tokens; seamless's frames are as long as its
@@ -1163,11 +1182,13 @@ FLASH_PATHS = (
     ("seamless-m4t-medium decoder self", 1, 256, 256, 16, 16, 64, True, 12),
     ("seamless-m4t-medium decoder cross", 1, 256, 256, 16, 16, 64, False,
      12),
-    ("zamba2-7b", 1, 512, 512, 32, 32, 112, True, 13))
+    ("zamba2-7b", 1, 512, 512, 32, 32, 112, True, 13),
+    ("zamba2-7b-instruct", 1, 4090, 4090, 32, 32, 224, True, 13))
 #: the SSD calls of each drive's prefill: (path, b, s, h, p, n, chunk,
 #: calls a prefill)
 SSD_PATHS = (("mamba2-370m", 1, 300, 32, 64, 128, 256, 48),
-             ("zamba2-7b", 1, 512, 112, 64, 64, 256, 81))
+             ("zamba2-7b", 1, 512, 112, 64, 64, 256, 81),
+             ("zamba2-7b-instruct", 1, 4090, 112, 64, 64, 256, 81))
 #: full-width float32 card vs CPU: (prompt tokens, encoder frames, config
 #: overrides) per model.  Two depth cuts spare the CPU's float32 time and
 #: the host's memory: zamba2-7b keeps 12 of its 81 Mamba blocks (2 shared
@@ -1218,17 +1239,19 @@ def _flash_inputs(b, sq, sk, hq, hkv, d, dtype, dev, seed):
             for shape in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d))]
 
 
-def _ssd_inputs(b, s, h, p, n, dtype, dev, seed):
+def _ssd_inputs(b, s, h, p, n, dtype, dev, seed, groups=1):
     """x, B, C standard normal; dt = softplus(N(0,1) - 1) and A = -exp(U)
-    as the JAX kernel tests draw them; dt and A float32."""
+    as the JAX kernel tests draw them; dt and A float32.  B and C are
+    [b, s, n], or [b, s, groups, n] where ``groups`` > 1."""
     import torch
     g = torch.Generator(dev).manual_seed(seed)
     x = torch.randn((b, s, h, p), generator=g, device=dev).to(dtype)
     dt = torch.nn.functional.softplus(
         torch.randn((b, s, h), generator=g, device=dev) - 1.0)
     A = -torch.exp(torch.rand(h, generator=g, device=dev) * 2.0 - 1.0)
-    B = torch.randn((b, s, n), generator=g, device=dev).to(dtype)
-    C = torch.randn((b, s, n), generator=g, device=dev).to(dtype)
+    bc = (b, s, n) if groups == 1 else (b, s, groups, n)
+    B = torch.randn(bc, generator=g, device=dev).to(dtype)
+    C = torch.randn(bc, generator=g, device=dev).to(dtype)
     return x, dt, A, B, C
 
 
@@ -1241,13 +1264,15 @@ def phase_lm_kernel_checks(dev) -> dict:
     from repro_torch.kernels import ssd
     errs = {"flash_attention": 0.0, "ssd_scan": 0.0}
     for name, b, sq, sk, hq, hkv, d in FLASH_SHAPES:
+        scale = FLASH_SCALE.get(name)
         for dtype in (torch.float32, torch.bfloat16):
             tol = FLASH_TOL[str(dtype)[6:]]
             q, k, v = _flash_inputs(b, sq, sk, hq, hkv, d, dtype, dev, sq)
             for causal in (True, False):
-                got = fa.flash_attention(q, k, v, causal=causal)
+                got = fa.flash_attention(q, k, v, causal=causal, scale=scale)
                 sync()
-                want = fa.flash_attention_ref(q, k, v, causal=causal)
+                want = fa.flash_attention_ref(q, k, v, causal=causal,
+                                              scale=scale)
                 err, ok = _err(got, want, tol)
                 check(ok, f"flash {name} {dtype} causal={causal}: kernel != "
                           f"plain (max |err| {err})")
@@ -1263,12 +1288,15 @@ def phase_lm_kernel_checks(dev) -> dict:
                     errs["flash_attention"] = max(errs["flash_attention"],
                                                   err)
                 print(f"[lm kernel] flash {name} [{b}, {sq} x {sk}, {hq}/"
-                      f"{hkv}, {d}] {str(dtype)[6:]} causal={causal}: max "
+                      f"{hkv}, {d}] scale {scale or d ** -0.5!r} "
+                      f"{str(dtype)[6:]} causal={causal}: max "
                       f"|kernel - plain| {err!r} (tol {tol}){extra}")
     for name, b, s, h, p, n, chunk in SSD_SHAPES:
+        groups = SSD_GROUPS.get(name, 1)
         for dtype in (torch.float32, torch.bfloat16):
             tol = SSD_TOL[str(dtype)[6:]]
-            x, dt, A, B, C = _ssd_inputs(b, s, h, p, n, dtype, dev, s)
+            x, dt, A, B, C = _ssd_inputs(b, s, h, p, n, dtype, dev, s,
+                                         groups)
             st0 = torch.randn((b, h, p, n), device=dev,
                               generator=torch.Generator(dev).manual_seed(1))
             for init in (None, st0):
@@ -1284,7 +1312,8 @@ def phase_lm_kernel_checks(dev) -> dict:
                 if dtype == torch.bfloat16 and init is None:
                     errs["ssd_scan"] = max(errs["ssd_scan"], err)
                 print(f"[lm kernel] ssd {name} [{b}, {s}, {h}, {p}] n={n} "
-                      f"{str(dtype)[6:]} initial_state={init is not None}: "
+                      f"groups={groups} {str(dtype)[6:]} "
+                      f"initial_state={init is not None}: "
                       f"max |kernel - plain| y {err!r}, state {serr!r} (tol "
                       f"{tol})")
     return errs
@@ -1511,12 +1540,14 @@ def _kernel_name(key: str) -> str:
     return found.group(1) if found else key[:40]
 
 
-def _time_flash(name, b, sq, sk, hq, hkv, d, causal, dev, card) -> dict:
-    """bf16 flash at one shape: first the kernel against its plain version
-    on these inputs (3e-2, and the one-ulp share check of (d1)), then the
-    kernel and SDPA in turns (SDPA, kernel, kernel, SDPA; the better of
-    two each), the plain version, the bound.  ``err`` is the check's
-    largest |kernel - plain|."""
+def _time_flash(name, b, sq, sk, hq, hkv, d, causal, dev, card,
+                scale=None) -> dict:
+    """bf16 flash at one shape and softmax scale (D^-1/2 where None):
+    first the kernel against its plain version on these inputs (3e-2, and
+    the one-ulp share check of (d1)), then the kernel and SDPA in turns
+    (SDPA, kernel, kernel, SDPA; the better of two each), the plain
+    version, the bound.  ``err`` is the check's largest |kernel -
+    plain|."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1524,9 +1555,10 @@ def _time_flash(name, b, sq, sk, hq, hkv, d, causal, dev, card) -> dict:
     q, k, v = _flash_inputs(b, sq, sk, hq, hkv, d, torch.bfloat16, dev,
                             sq + d)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    kern = lambda: fa.flash_attention(q, k, v, causal=causal)  # noqa: E731
+    kern = lambda: fa.flash_attention(q, k, v,  # noqa: E731
+                                      causal=causal, scale=scale)
     plain = lambda: fa.flash_attention_ref(q, k, v,  # noqa: E731
-                                           causal=causal)
+                                           causal=causal, scale=scale)
     got = kern()
     sync()
     want = plain()
@@ -1541,7 +1573,7 @@ def _time_flash(name, b, sq, sk, hq, hkv, d, causal, dev, card) -> dict:
           f"{FLASH_TOL['bfloat16']}); {share:.3%} of outputs differ, all "
           f"within one bf16 ulp (limit {FLASH_BF16_SHARE:.0%})")
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=causal, enable_gqa=True)
+        qt, kt, vt, is_causal=causal, enable_gqa=True, scale=scale)
     lib1, ms1, ms2, lib2 = (device_ms(f, 50) for f in (sdpa, kern, kern,
                                                        sdpa))
     ms, lib_ms = min(ms1, ms2), min(lib1, lib2)
@@ -1558,26 +1590,28 @@ def _time_flash(name, b, sq, sk, hq, hkv, d, causal, dev, card) -> dict:
             "bound_by": by, "library_ms": lib_ms, "err": err}
 
 
-def _time_ssd(name, b, s, h, p, n, chunk, dev, card) -> dict:
-    """bf16 SSD at one shape: the kernel (five stages), the plain version,
-    the bound; the stages' device times from a profiler trace (log)."""
+def _time_ssd(name, b, s, h, p, n, chunk, dev, card, groups=1) -> dict:
+    """bf16 SSD at one shape (B and C in ``groups`` groups): the kernel
+    (five stages), the plain version, the bound; the stages' device times
+    from a profiler trace (log)."""
     import torch
     from repro_torch.kernels import ssd
     from repro_torch.kernels.ssd import ssd_work
-    x, dt, A, B, C = _ssd_inputs(b, s, h, p, n, torch.bfloat16, dev, s)
+    x, dt, A, B, C = _ssd_inputs(b, s, h, p, n, torch.bfloat16, dev, s,
+                                 groups)
     kern = lambda: ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)  # noqa: E731
     ms = device_ms(kern, 20)
     stages = kernel_shares(kern, 20)
     plain_ms = device_ms(lambda: ssd.ssd_scan_ref(x, dt, A, B, C,
                                                   chunk=chunk), 3)
-    tc_flops, flops, nbytes = ssd_work(b, s, h, p, n, chunk, 2)
+    tc_flops, flops, nbytes = ssd_work(b, s, h, p, n, chunk, 2, groups)
     # C.B^T at the bf16 tensor-core peak, the rest at the float32 one: in
     # float32-peak-equivalent operations
     eq = flops + tc_flops * PEAK_FP32_FLOPS / PEAK_BF16_FLOPS
     bound_ms, by = bound(eq, nbytes, PEAK_FP32_FLOPS)
     print(f"[times] ssd_scan {name} bf16 [{b}, {s}, {h}, {p}] n={n} "
-          f"chunk={chunk}: device time kernel {ms:.4f} ms (five kernels), "
-          f"plain {plain_ms:.4f} ms; bound {bound_ms:.6f} ms ({by}; "
+          f"groups={groups} chunk={chunk}: device time kernel {ms:.4f} ms "
+          f"(five kernels), plain {plain_ms:.4f} ms; bound {bound_ms:.6f} ms ({by}; "
           f"{tc_flops} bf16 tensor-core flops, {flops} float32 flops, "
           f"{nbytes} bytes), {bound_ms / ms:.1%} of the bound reached "
           f"({card})")
@@ -1599,7 +1633,8 @@ def phase_lm_times(dev, serve: dict, errs: dict, card: str):
     flash, ssd_entries = [], []
     for path, b, sq, sk, hq, hkv, d, causal, per in FLASH_PATHS:
         n = serve[path.split()[0]][0]
-        t = _time_flash(path, b, sq, sk, hq, hkv, d, causal, dev, card)
+        t = _time_flash(path, b, sq, sk, hq, hkv, d, causal, dev, card,
+                        FLASH_SCALE.get(path))
         errs["flash_attention"] = max(errs["flash_attention"], t.pop("err"))
         flash.append({"launch": f"{path} [{b}, {sq} x {sk}, {hq}/{hkv}, {d}]"
                                 f" {'causal' if causal else 'non-causal'}",
@@ -1610,9 +1645,10 @@ def phase_lm_times(dev, serve: dict, errs: dict, card: str):
                             dev, card)
             errs["flash_attention"] = max(errs["flash_attention"], t["err"])
     for path, b, s, h, p, n_, chunk, per in SSD_PATHS:
-        t = _time_ssd(path, b, s, h, p, n_, chunk, dev, card)
+        groups = SSD_GROUPS.get(path, 1)
+        t = _time_ssd(path, b, s, h, p, n_, chunk, dev, card, groups)
         ssd_entries.append({"launch": f"{path} [{b}, {s}, {h}, {p}] n={n_} "
-                                      f"chunk={chunk}",
+                                      f"groups={groups} chunk={chunk}",
                             "launches": per * serve[path][0], **t})
     _time_ssd("long4096", *SSD_SHAPES[1][1:], dev, card)
     records = []
@@ -3208,6 +3244,13 @@ def _run_phases(dev, sweep, card: str, t_all: float) -> int:
         phase_mesh(dev, grid_cold, grid_launches["cold"], card)
         print(f"[done] {time.perf_counter() - t_all:.1f} s; phases 1, 6 "
               f"and 10 only: no result")
+        return 1
+    if sys.argv[1:] == ["--phase", "8"]:      # the LM serving path alone
+        lm_records = phase_lm(dev, card)
+        print(f"[done] {time.perf_counter() - t_all:.1f} s; phases 1 and 8 "
+              f"only: no result")
+        print(card)
+        print(json.dumps({"kernels": lm_records}))
         return 1
     if sys.argv[1:] == ["--phase", "11"]:     # the dry run alone
         recs = _dryrun_records(sweep, card)

@@ -11,6 +11,7 @@ exporting a ``CONFIG: ModelConfig``.  Input shapes (the ``train_4k`` /
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -57,10 +58,20 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_headdim: int = 64
     ssm_chunk: int = 256
+    ssm_groups: int = 1      # B/C groups; head h reads group h // (H / groups)
 
     # --- Hybrid (Zamba2) ---
     shared_every: int = 6   # apply a shared attention block every k mamba blocks
     n_shared: int = 2       # number of alternating shared blocks
+    # The published block (Zyphra/Zamba2-7B-Instruct, arXiv:2411.15242;
+    # ``models.zamba2_published``) where ``hybrid_layer_ids`` is given: a
+    # shared block on [x, embeddings] before each listed layer's Mamba
+    # block, its output through the application's own ``linear`` into that
+    # block's input.  The defaults keep the JAX
+    # package's narrowed block (after every ``shared_every`` Mamba blocks).
+    hybrid_layer_ids: Tuple[int, ...] = ()
+    adapter_rank: int = 0          # rank of each application's gate/up adapter
+    attn_scale: float = 0.0        # softmax scale; 0 gives head_dim ** -0.5
 
     # --- Modality stubs ---
     n_patches: int = 0      # vlm: number of precomputed patch embeddings
@@ -85,6 +96,9 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // max(self.n_heads, 1))
+        # a configuration file gives the ids as a JSON list
+        object.__setattr__(self, "hybrid_layer_ids",
+                           tuple(self.hybrid_layer_ids))
 
     # ---- derived quantities -------------------------------------------------
     @property
@@ -107,6 +121,22 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_headdim
+
+    @property
+    def conv_dim(self) -> int:
+        """Channels of the Mamba2 conv: x and every group's B and C."""
+        return self.d_inner + 2 * self.ssm_groups * self.ssm_state
+
+    @property
+    def softmax_scale(self) -> float:
+        return self.attn_scale or self.head_dim ** -0.5
+
+    @property
+    def n_apps(self) -> int:
+        """Applications of the hybrid's shared blocks."""
+        if self.hybrid_layer_ids:
+            return len(self.hybrid_layer_ids)
+        return self.n_layers // self.shared_every
 
     def param_count(self) -> int:
         """Analytic parameter count (matches models/*.init_params)."""
@@ -132,6 +162,14 @@ class ModelConfig:
             n += self.n_layers * (attn + cross + dense_ffn + 3 * d)
         elif self.family == "ssm":
             n += self.n_layers * (self._mamba_block_params() + d)
+        elif self.family == "hybrid" and self.hybrid_layer_ids:
+            din = 2 * d     # the shared block reads [x, embeddings]
+            hd = self.head_dim
+            attn = din * (self.n_heads + 2 * self.n_kv_heads) * hd + \
+                self.n_heads * hd * d
+            n += self.n_layers * (self._mamba_block_params() + d)
+            n += self.n_shared * (attn + dense_ffn + din + d)
+            n += self.n_apps * (d * d + self.adapter_rank * (d + 2 * self.d_ff))
         elif self.family == "hybrid":
             n += self.n_layers * (self._mamba_block_params() + d)
             n += self.n_shared * (attn + dense_ffn + 2 * d)
@@ -142,7 +180,7 @@ class ModelConfig:
         d, di, ns = self.d_model, self.d_inner, self.ssm_state
         nh = self.ssm_heads
         # in_proj -> [z, x, B, C, dt] ; conv over (x, B, C); out_proj
-        ng = 1  # single B/C group
+        ng = self.ssm_groups
         in_proj = d * (2 * di + 2 * ng * ns + nh)
         conv = (self.ssm_conv + 1) * (di + 2 * ng * ns)  # conv_w + conv_b
         out_proj = di * d
@@ -185,8 +223,19 @@ class ModelConfig:
             remat="none",
             attn_chunk=32,
         )
+        if self.hybrid_layer_ids:     # every mechanism, at a tiny size
+            kw.update(n_layers=4, hybrid_layer_ids=(1, 3),
+                      adapter_rank=min(self.adapter_rank, 8),
+                      attn_scale=self.attn_scale * math.sqrt(
+                          self.head_dim / 16))
         kw.update(over)
         return dataclasses.replace(self, **kw)
+
+
+#: the port's fields beyond the JAX package's ``ModelConfig`` (B/C groups and
+#: the published Zamba2 block), at the values that keep its models
+PORT_DEFAULTS = {"ssm_groups": 1, "hybrid_layer_ids": (),
+                 "adapter_rank": 0, "attn_scale": 0.0}
 
 
 @dataclass(frozen=True)

@@ -22,15 +22,22 @@ ARCH_MODULES = {
 
 ARCHS: List[str] = list(ARCH_MODULES)
 
+#: configurations beyond the JAX package's (``ARCHS`` equals its list):
+#: ``get_config`` resolves them, the dry run's cells do not enumerate them
+EXTRA_MODULES = {
+    "zamba2-7b-instruct": "zamba2_7b_instruct",
+}
+
 # Archs with sub-quadratic sequence mixing; only these run ``long_500k``
 # (pure full-attention archs skip it — see DESIGN.md §Arch-applicability).
 SUBQUADRATIC = {"mamba2-370m", "zamba2-7b"}
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch not in ARCH_MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {ARCHS}")
-    mod = importlib.import_module(f"repro_torch.configs.{ARCH_MODULES[arch]}")
+    modules = {**ARCH_MODULES, **EXTRA_MODULES}
+    if arch not in modules:
+        raise KeyError(f"unknown arch {arch!r}; known: {list(modules)}")
+    mod = importlib.import_module(f"repro_torch.configs.{modules[arch]}")
     return mod.CONFIG
 
 

@@ -37,7 +37,6 @@ namespace {
 
 constexpr int BQ = 32;               // query rows per block
 constexpr int LANES = 4;             // threads per query row
-constexpr int BK = 32;               // keys per staged KV tile
 constexpr int THREADS = BQ * LANES;  // 128
 constexpr float MASKED = -1e30f;
 
@@ -47,6 +46,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
                  int Hq, int Hkv, int causal, float scale) {
   constexpr int V4 = D / (4 * LANES);  // float4 groups of q/acc per thread
+  // keys per staged KV tile: 32, or 16 above D = 128, where 32 rows of K
+  // and V would pass the 48 KB of static shared memory (D = 224: 28 KB)
+  constexpr int BK = D > 128 ? 16 : 32;
   __shared__ __align__(16) float ks[BK][D];
   __shared__ __align__(16) float vs[BK][D];
 
@@ -170,6 +172,7 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
     case 64: return launch<64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     case 112: return launch<112>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     case 128: return launch<128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
+    case 224: return launch<224>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -6,7 +6,8 @@
 // inputs take the CUDA-core kernel in flash.cu.  The TPU kernel walks a
 // sequential grid (B, Hq, nQ, nK) and carries (m, l, acc) in VMEM from one
 // KV block to the next.  Here a CTA owns 64 query rows of one (batch,
-// query head); its WGS warpgroups (3, or 2 at D = 128) take every WGS-th
+// query head); its WGS warpgroups (3; 2 at D = 112, 128; 1 at D = 224) take
+// every WGS-th
 // 64-key tile each, with m, l and the output accumulator in registers, and
 // warpgroups 1.. hand theirs to warpgroup 0 through shared memory at the
 // end, which merges them and writes o.  The grid walks the query tiles
@@ -46,7 +47,12 @@
 //    the tensor maps span the real 112 columns, so TMA zero-fills columns
 //    112-127 of every Q, K and V tile and clips them from the store of o.
 //    Q.K^T runs its 7 k16 steps over the real columns only; P.V computes
-//    the 16 zero columns as well (128/112 of its work).  Q once, then
+//    the 16 zero columns as well (128/112 of its work).  D = 224
+//    (zamba2-7b-instruct's, 3 x 64 + 32) pads a fourth panel the same way
+//    (256 columns; Q.K^T 14 k16 steps, P.V 256/224 of its work).  Its
+//    tiles take 32 KB each, so it runs one warpgroup with two stages (Q 32
+//    KB + 2 x (K + V) 128 KB); the output accumulator is 128 registers a
+//    thread.  Q once, then
 //    K and V through a ring of STAGES tiles a warpgroup, each with an
 //    mbarrier; a stage is refilled as soon as its warpgroup is done with
 //    it.  One thread prefetches the tensor maps, sets up the barriers and
@@ -86,10 +92,11 @@ struct Cfg {
   // wgmma descriptor layout: 1 = 128-byte, 2 = 64-byte, 3 = 32-byte swizzle
   static constexpr uint64_t LAYOUT = ROW_BYTES == 128 ? 1 : ROW_BYTES == 64 ? 2 : 3;
   static constexpr uint32_t SBO = 8 * ROW_BYTES;             // 8-row group stride
-  // warpgroups, each taking every WGS-th KV tile
-  static constexpr int WGS = D <= 64 ? 3 : 2;
+  // warpgroups, each taking every WGS-th KV tile, and their stages (two at
+  // least: the next tile's S is issued before this tile's P.V)
+  static constexpr int WGS = D <= 64 ? 3 : D <= 128 ? 2 : 1;
   static constexpr int THREADS = 128 * WGS;
-  static constexpr int STAGES = 3;
+  static constexpr int STAGES = D <= 128 ? 3 : 2;
   static constexpr int SMEM = Q_BYTES + 2 * KV_BYTES * WGS * STAGES + 1024;
 };
 
@@ -603,6 +610,7 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
     case 64: return launch<64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     case 112: return launch<112>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     case 128: return launch<128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
+    case 224: return launch<224>(q, k, v, o, B, Sq, Sk, Hq, Hkv, causal, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

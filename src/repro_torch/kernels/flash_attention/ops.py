@@ -1,7 +1,8 @@
 """Public wrapper for the flash-attention kernel.
 
-``flash_attention(q, k, v, causal=True)`` takes the model layout —
-q [B,Sq,Hq,D], k/v [B,Sk,Hkv,D] — and returns [B,Sq,Hq,D] in q's type,
+``flash_attention(q, k, v, causal=True, scale=None)`` takes the model
+layout — q [B,Sq,Hq,D], k/v [B,Sk,Hkv,D] — and returns [B,Sq,Hq,D] in q's
+type (softmax of the scores times ``scale``, D^-1/2 unless given),
 as the JAX package's ``kernels.flash_attention.ops.flash_attention``
 does (that wrapper transposes to head-major for the Pallas kernel; the
 CUDA kernel reads the model layout directly).
@@ -32,6 +33,8 @@ the JAX package's loss does.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -42,8 +45,9 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 #: kernel launches since the last ``reset_launches()``
 LAUNCHES = {"flash_attention": 0}
 #: head dims the kernel is instantiated for (112: zamba2-7b's shared
-#: attention, d 3584 over 32 heads)
-HEAD_DIMS = (16, 32, 64, 112, 128)
+#: attention, d 3584 over 32 heads; 224: zamba2-7b-instruct's, the 7168-wide
+#: [x, embeddings] over 32 heads)
+HEAD_DIMS = (16, 32, 64, 112, 128, 224)
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -85,8 +89,10 @@ def _check(q, k, v) -> None:
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: Optional[float] = None,
                     device: DeviceLike = None) -> torch.Tensor:
-    """q: [B,Sq,Hq,D]; k/v: [B,Sk,Hkv,D] -> [B,Sq,Hq,D]."""
+    """q: [B,Sq,Hq,D]; k/v: [B,Sk,Hkv,D] -> [B,Sq,Hq,D]; the scores are
+    scaled by ``scale`` (D^-1/2 when None)."""
     refuse_grad("flash_attention",
                 "repro_torch.models.layers.attn_forward (attention_chunked)",
                 (q, k, v))
@@ -96,17 +102,18 @@ def flash_attention(q, k, v, *, causal: bool = True,
     _check(q, k, v)
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    scale = d ** -0.5 if scale is None else float(scale)
     with kernel_call("flash_attention",
                      *flash_work(b, sq, sk, hq, hkv, d, causal,
                                  q.element_size())):
         if q.device.type == "cpu":
-            return flash_attention_ref(q, k, v, causal=causal)
+            return flash_attention_ref(q, k, v, causal=causal, scale=scale)
         if q.device.type not in ("cuda", "meta"):
             raise ValueError(f"unsupported device {q.device}")
-        return _kernel(q, k, v, causal)
+        return _kernel(q, k, v, causal, scale)
 
 
-def _kernel(q, k, v, causal: bool) -> torch.Tensor:
+def _kernel(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     """The kernel's checks, its output, and on the card its launch."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -134,7 +141,7 @@ def _kernel(q, k, v, causal: bool) -> torch.Tensor:
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                  sq, sk, hq, hkv, d, int(bool(causal)), d ** -0.5, stream)
+                  sq, sk, hq, hkv, d, int(bool(causal)), scale, stream)
     if code != 0:
         raise RuntimeError(f"flash-attention kernel launch failed: CUDA "
                            f"error {code}")

@@ -2,7 +2,8 @@
 
 It computes what ``csrc/flash.cu`` computes, with the TPU kernel's
 arithmetic conventions (``src/repro/kernels/flash_attention/flash.py``):
-q is cast to float32 and then scaled by D^-1/2; scores are float32; a
+q is cast to float32 and then scaled by D^-1/2 (or the caller's
+``scale``); scores are float32; a
 masked score is -1e30; the PV product takes p in float32 (the TPU kernel
 casts v to float32 at ``flash.py:52``, so its ``p.astype(v.dtype)`` at
 ``:64`` keeps p in float32) and the denominator sums the same p; the
@@ -26,13 +27,14 @@ F32 = torch.float32
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        q_offset: int = 0) -> torch.Tensor:
+                        q_offset: int = 0, scale=None) -> torch.Tensor:
     """q: [B,Sq,Hq,D]; k/v: [B,Sk,Hkv,D] (model layout) -> [B,Sq,Hq,D] in
     q's type."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    qf = q.to(F32).reshape(b, sq, hkv, g, d) * (d ** -0.5)
+    qf = q.to(F32).reshape(b, sq, hkv, g, d) * (
+        d ** -0.5 if scale is None else scale)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.to(F32))     # [B,Hkv,G,Sq,Sk]
     if causal:
         mask = (torch.arange(sq, device=q.device)[:, None] + q_offset

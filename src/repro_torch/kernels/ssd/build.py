@@ -14,7 +14,7 @@ NVCC_FLAGS = BASE_FLAGS
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_scan_fwd.argtypes = [vp] * 11 + [ci] * 7 + [vp]
+    lib.ssd_scan_fwd.argtypes = [vp] * 11 + [ci] * 8 + [vp]
     lib.ssd_scan_fwd.restype = ci
 
 

@@ -20,8 +20,9 @@
 // counts the call once):
 //   1. ssd_cumsum_kernel: cum for each (b, h, chunk), one warp a row, a
 //      shuffle scan;
-//   2. ssd_cb_kernel: CB = C_c . B_c^T once per (b, chunk) for all heads
-//      (the heads share B and C), the lower 64 x 64 tiles of [L, L]; bf16
+//   2. ssd_cb_kernel: CB = C_c . B_c^T once per (b, group, chunk) for the
+//      group's heads (they share its B and C), the lower 64 x 64 tiles of
+//      [L, L]; bf16
 //      on the tensor cores (mma.sync m16n8k16, float32 accumulate: the
 //      products of bf16 values are exact in float32, only the order of
 //      the sums changes), float32 on the CUDA cores;
@@ -40,6 +41,11 @@
 // overflows, and inf * 0 would be NaN.  Rows past the sequence read as
 // zeros (dt = 0 keeps the state, as ssd_chunked's zero padding gives) and
 // write no y.
+//
+// B and C come in G groups, [b, S, G, N]: head h reads group h / (H / G)
+// (Mamba2's ngroups; G = 1 is the [b, S, N] of one group).  The kernels
+// take the groups as a template flag GR: with GR false (G = 1) every index
+// folds to the one-group code.
 //
 // What bounds it on an H100: the operations (at mamba2-370m, [1, 4096, 32,
 // 64], N 128, L 256: 0.13 GFLOP of C.B^T on the tensor cores and 6.4 GFLOP
@@ -140,12 +146,20 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <typename T>
+template <typename T, bool GR>
 __global__ void __launch_bounds__(CB_THREADS)
 ssd_cb_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
-              float* __restrict__ cb, int S, int N, int L, int nc, int ntri) {
+              float* __restrict__ cb, int S, int N, int L, int nc, int ntri,
+              int G) {
+  // bc: chunk c of group g of batch row b, cb's [b, G, nc] index
   const int tri = blockIdx.x % ntri, bc = blockIdx.x / ntri;
-  const int c = bc % nc, b = bc / nc;
+  const int c = bc % nc, g = GR ? (bc / nc) % G : 0;
+  const int b = GR ? bc / nc / G : bc / nc;
+  const long long GN = GR ? (long long)G * N : N;
+  if (GR) {
+    Bm += (long long)g * N;
+    Cm += (long long)g * N;
+  }
   int ti, tj;
   tri_tile(tri, ti, tj);
   const int i0 = ti * T64, j0 = tj * T64, s0 = c * L;
@@ -168,8 +182,8 @@ ssd_cb_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
         const int r = e / KC, k = e % KC, n = n0 + k;
         const int si = seq(i0, r), sj = seq(j0, r);
         const __nv_bfloat16 z = __float2bfloat16(0.f);
-        cs[r][k] = (si >= 0 && n < N) ? Cm[((long long)b * S + si) * N + n] : z;
-        bs[r][k] = (sj >= 0 && n < N) ? Bm[((long long)b * S + sj) * N + n] : z;
+        cs[r][k] = (si >= 0 && n < N) ? Cm[((long long)b * S + si) * GN + n] : z;
+        bs[r][k] = (sj >= 0 && n < N) ? Bm[((long long)b * S + sj) * GN + n] : z;
       }
       __syncthreads();
 #pragma unroll
@@ -205,8 +219,8 @@ ssd_cb_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
       for (int e = tid; e < T64 * JT; e += CB_THREADS) {
         const int r = e / JT, k = e % JT, n = n0 + k;
         const int si = seq(i0, r), sj = seq(j0, r);
-        ct[k][r] = (si >= 0 && n < N) ? to_f(Cm[((long long)b * S + si) * N + n]) : 0.f;
-        bt[k][r] = (sj >= 0 && n < N) ? to_f(Bm[((long long)b * S + sj) * N + n]) : 0.f;
+        ct[k][r] = (si >= 0 && n < N) ? to_f(Cm[((long long)b * S + si) * GN + n]) : 0.f;
+        bt[k][r] = (sj >= 0 && n < N) ? to_f(Bm[((long long)b * S + sj) * GN + n]) : 0.f;
       }
       __syncthreads();
 #pragma unroll 8
@@ -228,12 +242,12 @@ ssd_cb_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
 // ---------------------------------------------------------------------------
 // The reduction over the chunk's rows runs in tiles of JT rows; the row
 // weights w_j = exp(cum_L - cum_j) dt_j are taken once a row.
-template <typename T, int P>
+template <typename T, int P, bool GR>
 __global__ void __launch_bounds__(128)
 ssd_states_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                   const T* __restrict__ Bm, const float* __restrict__ cum,
                   float* __restrict__ st, int S, int H, int N, int L, int nc,
-                  int ntile) {
+                  int ntile, int G) {
   constexpr int NT = 2048 / P;  // state columns per block
   __shared__ __align__(16) float xs[JT][P], bs[JT][NT];
   __shared__ float w_s[256];
@@ -247,7 +261,9 @@ ssd_states_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   for (int j = tid; j < jn; j += 128)
     w_s[j] = expf(cum_end - cr[j]) * dt[((long long)b * S + s0 + j) * H + h];
   const T* xb = x + (((long long)b * S + s0) * H + h) * P;  // row j: + j H P
-  const T* bb = Bm + ((long long)b * S + s0) * N + n0;      // row j: + j N
+  const long long GN = GR ? (long long)G * N : N;          // B's row
+  const T* bb = Bm + ((long long)b * S + s0) * GN +
+                (GR ? (long long)(h / (H / G)) * N : 0) + n0;  // row j: + j GN
   float acc[4][4] = {};
   for (int j0 = 0; j0 < jn; j0 += JT) {
     __syncthreads();  // last tile consumed (and w_s written)
@@ -260,7 +276,7 @@ ssd_states_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll 4
     for (int e = tid; e < JT * NT; e += 128) {
       const int j = e / NT, k = e % NT, jj = j0 + j;
-      bs[j][k] = (jj < jn && n0 + k < N) ? to_f(bb[(long long)jj * N + k]) : 0.f;
+      bs[j][k] = (jj < jn && n0 + k < N) ? to_f(bb[(long long)jj * GN + k]) : 0.f;
     }
     __syncthreads();
 #pragma unroll 8
@@ -307,13 +323,13 @@ ssd_carry_kernel(float* __restrict__ st, const float* __restrict__ cum,
 // Two reductions in tiles of JT: the inter term over n (C rows, the
 // entering state), then the intra term over the keys j <= i (weights from
 // CB, x rows).  The chunk's cum and dt are staged once.
-template <typename T, int P>
+template <typename T, int P, bool GR>
 __global__ void __launch_bounds__(4 * P)
 ssd_out_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                const T* __restrict__ Cm, const float* __restrict__ cum,
                const float* __restrict__ cb, const float* __restrict__ st,
                T* __restrict__ y, int S, int H, int N, int L, int nc,
-               int nrt) {
+               int nrt, int G) {
   constexpr int THREADS = 4 * P;  // 16 x (P / 4) threads of 4 x 4
   __shared__ __align__(16) float sa[JT][T64 + PAD], sb[JT][P + PAD];
   __shared__ float cum_s[256], dt_s[256];
@@ -325,8 +341,11 @@ ssd_out_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int tid = threadIdx.x, tr = tid / (P / 4), tc = tid % (P / 4);
   const long long row = ((long long)b * H + h) * nc + c;
   const float* state = st + row * P * N;
-  const float* cbc = cb + (long long)bc * L * L + (long long)i0 * L;  // tile rows
-  const T* cm = Cm + ((long long)b * S + s0 + i0) * N;               // tile rows
+  const int g = GR ? h / (H / G) : 0;
+  const long long GN = GR ? (long long)G * N : N;                    // C's row
+  const float* cbc = cb + (GR ? (long long)(b * G + g) * nc + c : (long long)bc) *
+                              L * L + (long long)i0 * L;             // tile rows
+  const T* cm = Cm + ((long long)b * S + s0 + i0) * GN + (GR ? (long long)g * N : 0);
   const T* xb = x + (((long long)b * S + s0) * H + h) * P;           // + j H P
   const int j_end = i0 + in;  // keys this tile's rows can see
   for (int j = tid; j < j_end; j += THREADS) {
@@ -341,7 +360,7 @@ ssd_out_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll 4
     for (int e = tid; e < T64 * JT; e += THREADS) {
       const int r = e / JT, k = e % JT;
-      sa[k][r] = (r < in && n0 + k < N) ? to_f(cm[(long long)r * N + n0 + k]) : 0.f;
+      sa[k][r] = (r < in && n0 + k < N) ? to_f(cm[(long long)r * GN + n0 + k]) : 0.f;
     }
 #pragma unroll 4
     for (int e = tid; e < P * JT; e += THREADS) {
@@ -388,11 +407,11 @@ ssd_out_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <typename T, int P>
+template <typename T, int P, bool GR>
 cudaError_t launch(const void* x, const void* dt, const void* A,
                    const void* Bm, const void* Cm, const void* init_state,
                    void* y, void* final_state, float* cum, float* cb,
-                   float* st, int batch, int S, int H, int N, int L,
+                   float* st, int batch, int S, int H, int N, int L, int G,
                    cudaStream_t stream) {
   const int nc = (S + L - 1) / L, t64 = (L + T64 - 1) / T64;
   const int rows = batch * H * nc;
@@ -400,22 +419,22 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
       static_cast<const float*>(dt), static_cast<const float*>(A), cum, rows,
       S, H, nc, L);
   const int ntri = t64 * (t64 + 1) / 2;
-  ssd_cb_kernel<T><<<batch * nc * ntri, CB_THREADS, 0, stream>>>(
+  ssd_cb_kernel<T, GR><<<batch * G * nc * ntri, CB_THREADS, 0, stream>>>(
       static_cast<const T*>(Bm), static_cast<const T*>(Cm), cb, S, N, L, nc,
-      ntri);
+      ntri, G);
   constexpr int NT = 2048 / P;
   const int ntile = (N + NT - 1) / NT;
-  ssd_states_kernel<T, P><<<dim3(batch * nc * ntile, H), 128, 0, stream>>>(
+  ssd_states_kernel<T, P, GR><<<dim3(batch * nc * ntile, H), 128, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const T*>(Bm), cum, st, S, H, N, L, nc, ntile);
+      static_cast<const T*>(Bm), cum, st, S, H, N, L, nc, ntile, G);
   const int PN = P * N;
   ssd_carry_kernel<<<dim3((PN / 4 + 127) / 128, batch * H), 128, 0, stream>>>(
       st, cum, static_cast<const float*>(init_state),
       static_cast<float*>(final_state), PN, nc, L);
-  ssd_out_kernel<T, P><<<dim3(batch * nc * t64, H), 4 * P, 0, stream>>>(
+  ssd_out_kernel<T, P, GR><<<dim3(batch * nc * t64, H), 4 * P, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt),
       static_cast<const T*>(Cm), cum, cb, st, static_cast<T*>(y), S, H, N, L,
-      nc, t64);
+      nc, t64, G);
   return cudaGetLastError();
 }
 
@@ -424,11 +443,19 @@ cudaError_t dispatch_p(int P, const void* x, const void* dt, const void* A,
                        const void* Bm, const void* Cm, const void* init_state,
                        void* y, void* final_state, float* cum, float* cb,
                        float* st, int batch, int S, int H, int N, int L,
-                       cudaStream_t stream) {
+                       int G, cudaStream_t stream) {
+  if (G > 1) {
+    switch (P) {
+      case 16: return launch<T, 16, true>(x, dt, A, Bm, Cm, init_state, y, final_state, cum, cb, st, batch, S, H, N, L, G, stream);
+      case 32: return launch<T, 32, true>(x, dt, A, Bm, Cm, init_state, y, final_state, cum, cb, st, batch, S, H, N, L, G, stream);
+      case 64: return launch<T, 64, true>(x, dt, A, Bm, Cm, init_state, y, final_state, cum, cb, st, batch, S, H, N, L, G, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   switch (P) {
-    case 16: return launch<T, 16>(x, dt, A, Bm, Cm, init_state, y, final_state, cum, cb, st, batch, S, H, N, L, stream);
-    case 32: return launch<T, 32>(x, dt, A, Bm, Cm, init_state, y, final_state, cum, cb, st, batch, S, H, N, L, stream);
-    case 64: return launch<T, 64>(x, dt, A, Bm, Cm, init_state, y, final_state, cum, cb, st, batch, S, H, N, L, stream);
+    case 16: return launch<T, 16, false>(x, dt, A, Bm, Cm, init_state, y, final_state, cum, cb, st, batch, S, H, N, L, 1, stream);
+    case 32: return launch<T, 32, false>(x, dt, A, Bm, Cm, init_state, y, final_state, cum, cb, st, batch, S, H, N, L, 1, stream);
+    case 64: return launch<T, 64, false>(x, dt, A, Bm, Cm, init_state, y, final_state, cum, cb, st, batch, S, H, N, L, 1, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -436,25 +463,26 @@ cudaError_t dispatch_p(int P, const void* x, const void* dt, const void* A,
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (x, B, C and y alike; dt, A and the states
-// are float32).  init_state may be null (zeros).  Scratch, float32, from
-// the wrapper: cum [batch, H, nc, L], cb [batch, nc, L, L] and st [batch,
-// H, nc, P, N], nc = ceil(S / L).  Returns the first launch error's CUDA
-// code (0 on success); the wrapper checks every argument first.
+// are float32).  B and C [batch, S, G, N], G dividing H.  init_state may be
+// null (zeros).  Scratch, float32, from the wrapper: cum [batch, H, nc, L],
+// cb [batch, G, nc, L, L] and st [batch, H, nc, P, N], nc = ceil(S / L).
+// Returns the first launch error's CUDA code (0 on success); the wrapper
+// checks every argument first.
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A,
                             const void* Bm, const void* Cm,
                             const void* init_state, void* y,
                             void* final_state, void* cum, void* cb, void* st,
                             int batch, int S, int H, int P, int N, int L,
-                            int dtype, void* stream) {
+                            int dtype, int G, void* stream) {
   if (batch < 1 || S < 1 || H < 1 || L < 1 || L > 256 || N < 4 ||
-      N % 4 != 0 || P * N > 8192)
+      N % 4 != 0 || P * N > 8192 || G < 1 || H % G != 0)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float *c = static_cast<float*>(cum), *w = static_cast<float*>(cb),
         *t = static_cast<float*>(st);
   if (dtype == 0)
-    return dispatch_p<float>(P, x, dt, A, Bm, Cm, init_state, y, final_state, c, w, t, batch, S, H, N, L, s);
+    return dispatch_p<float>(P, x, dt, A, Bm, Cm, init_state, y, final_state, c, w, t, batch, S, H, N, L, G, s);
   if (dtype == 1)
-    return dispatch_p<__nv_bfloat16>(P, x, dt, A, Bm, Cm, init_state, y, final_state, c, w, t, batch, S, H, N, L, s);
+    return dispatch_p<__nv_bfloat16>(P, x, dt, A, Bm, Cm, init_state, y, final_state, c, w, t, batch, S, H, N, L, G, s);
   return cudaErrorInvalidValue;
 }

@@ -13,8 +13,10 @@ current stream, scratch allocated here) or raises on a type, shape or
 layout they do not take; a CPU tensor takes the plain version
 (``ref.py``); a meta tensor (the dry run) passes the kernels' checks and
 gets outputs and scratch of the kernels' shapes and types, computing
-nothing and launching nothing.  NumPy inputs are placed on ``device`` first, which
-defaults to ``cuda`` (and raises without a GPU).  The kernels take x, B
+nothing and launching nothing.  B and C are [b,s,n] (one group) or
+[b,s,g,n] (Mamba2's ``ngroups``: head h reads group h // (h/g)).  NumPy
+inputs are placed on ``device`` first, which defaults to ``cuda`` (and
+raises without a GPU).  The kernels take x, B
 and C in one type (float32 or bfloat16), dt, A and the state in float32,
 head dims p in {16, 32, 64}, n a multiple of 4 with p * n <= 8192, and
 chunk <= 256.
@@ -51,32 +53,41 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def ssd_work(b, s, h, p, n, chunk: int, elem: int):
+def ssd_work(b, s, h, p, n, chunk: int, elem: int, g: int = 1):
     """(tensor-core flops, CUDA-core flops, bytes) the chunked scan needs
     on these rows: per chunk of l real rows, C.B^T over the l(l+1)/2 kept
-    pairs once per sequence (the heads share B and C; the bf16 kernel runs
-    it on the tensor cores), and per head the weighted sum over those
+    pairs once per sequence and group (a group's heads share its B and C;
+    the bf16 kernel runs it on the tensor cores), and per head the
+    weighted sum over those
     pairs (p wide), the inter-chunk product and the state update (l*p*n
     each), 2 flops per multiply-add; the exps, the cumsum and the scalings
     are lower-order and not counted.  Bytes: x, B, C (``elem`` bytes a
     value), dt, A read once, y and the final state written once."""
     full, tail = divmod(s, chunk)
     pairs = full * (chunk * (chunk + 1) // 2) + tail * (tail + 1) // 2
-    cb = b * 2 * n * pairs
+    cb = b * g * 2 * n * pairs
     rest = b * h * (2 * p * pairs + 4 * s * p * n)
-    nbytes = elem * (2 * b * s * h * p + 2 * b * s * n) + 4 * (
+    nbytes = elem * (2 * b * s * h * p + 2 * b * s * g * n) + 4 * (
         b * s * h + h + b * h * p * n)
     return cb, rest, nbytes
+
+
+def groups_of(B) -> int:
+    """B/C groups of ``B`` [b,s,n] (one) or [b,s,g,n]."""
+    return B.shape[2] if B.dim() == 4 else 1
 
 
 def _check(x, dt, A, B, C, chunk, initial_state) -> None:
     if x.dim() != 4:
         raise ValueError(f"x must be [b,s,h,p], got {tuple(x.shape)}")
     b, s, h, p = x.shape
-    n = B.shape[-1] if B.dim() == 3 else -1
+    n = B.shape[-1] if B.dim() in (3, 4) else -1
+    g = groups_of(B)
+    bc = (b, s, n) if B.dim() == 3 else (b, s, g, n)
     if tuple(dt.shape) != (b, s, h) or tuple(A.shape) != (h,) or \
-            tuple(B.shape) != (b, s, n) or C.shape != B.shape:
-        raise ValueError(f"expected dt [b,s,h], A [h], B/C [b,s,n] for x "
+            tuple(B.shape) != bc or C.shape != B.shape or g < 1 or h % g:
+        raise ValueError(f"expected dt [b,s,h], A [h], B/C [b,s,n] or "
+                         f"[b,s,g,n] with g dividing h for x "
                          f"{tuple(x.shape)}; got {tuple(dt.shape)}, "
                          f"{tuple(A.shape)}, {tuple(B.shape)}, "
                          f"{tuple(C.shape)}")
@@ -118,8 +129,9 @@ def _kernel_checks(x, dt, A, B, C, chunk, initial_state) -> None:
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, initial_state=None,
              device: DeviceLike = None):
-    """x: [b,s,h,p]; dt: [b,s,h]; A: [h]; B/C: [b,s,n] (single group).
-    Returns (y [b,s,h,p] in x's type, final_state [b,h,p,n] float32)."""
+    """x: [b,s,h,p]; dt: [b,s,h]; A: [h]; B/C: [b,s,n] (single group) or
+    [b,s,g,n].  Returns (y [b,s,h,p] in x's type, final_state [b,h,p,n]
+    float32)."""
     refuse_grad("ssd_scan", "repro_torch.models.ssm.ssd_chunked",
                 (x, dt, A, B, C, initial_state))
     dev = tensor_device(x, device)
@@ -133,7 +145,8 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, initial_state=None,
     chunk = int(chunk)
     b, s, h, p = x.shape
     n = B.shape[-1]
-    cb, rest, nbytes = ssd_work(b, s, h, p, n, chunk, x.element_size())
+    cb, rest, nbytes = ssd_work(b, s, h, p, n, chunk, x.element_size(),
+                                groups_of(B))
     with kernel_call("ssd_scan", cb + rest, nbytes):
         if x.device.type == "cpu":
             return ssd_scan_ref(x, dt, A, B, C, chunk=chunk,
@@ -148,14 +161,14 @@ def _kernel(x, dt, A, B, C, chunk: int, initial_state):
     launch."""
     _kernel_checks(x, dt, A, B, C, chunk, initial_state)
     b, s, h, p = x.shape
-    n = B.shape[-1]
+    n, g = B.shape[-1], groups_of(B)
     nc = -(-s // chunk)
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=F32, device=x.device)
-    # scratch: per-chunk cumsums, C.B^T per chunk, chunk states (then the
-    # states entering each chunk, written over them by the carry)
+    # scratch: per-chunk cumsums, C.B^T per group and chunk, chunk states
+    # (then the states entering each chunk, written over them by the carry)
     cum = torch.empty((b, h, nc, chunk), dtype=F32, device=x.device)
-    cb = torch.empty((b, nc, chunk, chunk), dtype=F32, device=x.device)
+    cb = torch.empty((b, g, nc, chunk, chunk), dtype=F32, device=x.device)
     st = torch.empty((b, h, nc, p, n), dtype=F32, device=x.device)
     if x.device.type == "meta":
         return y, state
@@ -168,7 +181,7 @@ def _kernel(x, dt, A, B, C, chunk: int, initial_state):
             C.data_ptr(),
             None if initial_state is None else initial_state.data_ptr(),
             y.data_ptr(), state.data_ptr(), cum.data_ptr(), cb.data_ptr(),
-            st.data_ptr(), b, s, h, p, n, chunk, DTYPES[x.dtype], stream)
+            st.data_ptr(), b, s, h, p, n, chunk, DTYPES[x.dtype], g, stream)
     if code != 0:
         raise RuntimeError(f"SSD kernel launch failed: CUDA error {code}")
     LAUNCHES["ssd_scan"] += 1

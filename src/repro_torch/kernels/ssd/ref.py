@@ -9,7 +9,8 @@ them, and per chunk (``src/repro/kernels/ssd/ssd.py:44-62``)
            + exp(cum_i) (C_i . state)
   state    = state exp(cum_L) + sum_j exp(cum_L - cum_j) dt_j x_j (x) B_j
 
-with ``models.ssm.ssd_chunked``'s contract: a sequence that is not a
+B and C are [b, s, n] (one group) or [b, s, g, n] (head h reads group
+h // (h/g)), with ``models.ssm.ssd_chunked``'s contract: a sequence that is not a
 multiple of ``chunk`` is zero-padded at the tail (dt = 0 there leaves the
 state unchanged) and y is cut back; ``initial_state`` defaults to zeros.
 ``exp(cum_i - cum_j)`` is taken only for j <= i (the upper triangle gets
@@ -27,8 +28,11 @@ F32 = torch.float32
 
 
 def ssd_scan_ref(x, dt, A, B, C, *, chunk: int, initial_state=None):
-    """x: [b,s,h,p]; dt: [b,s,h]; A: [h]; B/C: [b,s,n].
+    """x: [b,s,h,p]; dt: [b,s,h]; A: [h]; B/C: [b,s,n] or [b,s,g,n].
     Returns (y [b,s,h,p] in x's type, final_state [b,h,p,n] float32)."""
+    if B.dim() == 4:
+        return by_group(ssd_scan_ref, x, dt, A, B, C, chunk=chunk,
+                         initial_state=initial_state)
     b, s, h, p = x.shape
     n = B.shape[-1]
     pad = (-s) % chunk
@@ -58,3 +62,17 @@ def ssd_scan_ref(x, dt, A, B, C, *, chunk: int, initial_state=None):
             torch.einsum("blh,blhp,bln->bhpn", to_end, xc, Bc)
         ys.append(y)
     return torch.cat(ys, dim=1)[:, :s].to(x.dtype), state
+
+
+def by_group(scan, x, dt, A, B, C, *, initial_state=None, **kw):
+    """``scan`` with B/C [b,s,g,n]: each group's heads with its B and C,
+    their y concatenated over the heads and their states likewise."""
+    g = B.shape[2]
+    hg = x.shape[2] // g
+    init = [None] * g if initial_state is None else \
+        initial_state.split(hg, dim=1)
+    outs = [scan(x[:, :, k * hg:(k + 1) * hg], dt[:, :, k * hg:(k + 1) * hg],
+                 A[k * hg:(k + 1) * hg], B[:, :, k], C[:, :, k],
+                 initial_state=init[k], **kw) for k in range(g)]
+    return (torch.cat([y for y, _ in outs], dim=2),
+            torch.cat([st for _, st in outs], dim=1))

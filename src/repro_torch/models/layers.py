@@ -151,12 +151,16 @@ def apply_rope(x, positions, theta: float):
 # attention
 # ---------------------------------------------------------------------------
 
-def init_attn(gen: torch.Generator, cfg: ModelConfig, pdt) -> Params:
+def init_attn(gen: torch.Generator, cfg: ModelConfig, pdt,
+              d_in: Optional[int] = None) -> Params:
+    """q, k, v projections from ``d_in`` (``d_model`` unless given) and
+    the output projection back to ``d_model``."""
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    di = d_in or d
     return {
-        "wq": dense_init(gen, (d, hq * dh), pdt),
-        "wk": dense_init(gen, (d, hkv * dh), pdt),
-        "wv": dense_init(gen, (d, hkv * dh), pdt),
+        "wq": dense_init(gen, (di, hq * dh), pdt),
+        "wk": dense_init(gen, (di, hkv * dh), pdt),
+        "wv": dense_init(gen, (di, hkv * dh), pdt),
         "wo": dense_init(gen, (hq * dh, d), pdt,
                          scale=1.0 / math.sqrt(hq * dh)),
     }
@@ -174,12 +178,15 @@ def _gqa_out(p, v):
     return torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
 
 
-def attention_naive(q, k, v, *, causal: bool, q_offset: int = 0):
-    """Reference attention.  q: [B,Sq,Hq,D], k/v: [B,Sk,Hkv,D]."""
+def attention_naive(q, k, v, *, causal: bool, q_offset: int = 0,
+                    scale: Optional[float] = None):
+    """Reference attention.  q: [B,Sq,Hq,D], k/v: [B,Sk,Hkv,D]; the scores
+    scaled by ``scale`` (D^-1/2 when None)."""
     b, sq, hq, dh = q.shape
     hkv = k.shape[2]
     g = hq // hkv
-    qg = q.reshape(b, sq, hkv, g, dh) * (dh ** -0.5)
+    qg = q.reshape(b, sq, hkv, g, dh) * (dh ** -0.5 if scale is None
+                                         else scale)
     s = _gqa_scores(qg, k)
     if causal:
         qpos = torch.arange(sq, device=q.device) + q_offset
@@ -191,14 +198,15 @@ def attention_naive(q, k, v, *, causal: bool, q_offset: int = 0):
 
 
 def attention_chunked(q, k, v, *, causal: bool, chunk: int,
-                      q_offset: int = 0):
+                      q_offset: int = 0, scale: Optional[float] = None):
     """Memory-bounded attention: a loop over query chunks, never more than
     [B,Hkv,G,chunk,Sk] scores at once (the JAX package's ``lax.scan``)."""
     b, sq, hq, dh = q.shape
     if sq % chunk != 0 or sq <= chunk:
-        return attention_naive(q, k, v, causal=causal, q_offset=q_offset)
+        return attention_naive(q, k, v, causal=causal, q_offset=q_offset,
+                               scale=scale)
     outs = [attention_naive(q[:, i:i + chunk], k, v, causal=causal,
-                            q_offset=q_offset + i)
+                            q_offset=q_offset + i, scale=scale)
             for i in range(0, sq, chunk)]
     return torch.cat(outs, dim=1)
 
@@ -227,7 +235,8 @@ def local_position(pos: int, local_len: int, seq: Optional[SeqShard]):
 
 
 def attention_decode(q, k_cache, v_cache, cache_len: int,
-                     seq: Optional[SeqShard] = None):
+                     seq: Optional[SeqShard] = None,
+                     scale: Optional[float] = None):
     """Single-step decode.  q: [B,1,Hq,D]; caches: [B,Smax,Hkv,D]; the
     first ``cache_len`` cache positions are attended.  With ``seq`` the
     caches are this rank's slice of the sequence, and the softmax runs
@@ -239,7 +248,8 @@ def attention_decode(q, k_cache, v_cache, cache_len: int,
     b, _, hq, dh = q.shape
     hkv = k_cache.shape[2]
     g = hq // hkv
-    qg = q.reshape(b, 1, hkv, g, dh) * (dh ** -0.5)
+    qg = q.reshape(b, 1, hkv, g, dh) * (dh ** -0.5 if scale is None
+                                        else scale)
     s = _gqa_scores(qg, k_cache)                       # [B,Hkv,G,1,Smax]
     start = 0 if seq is None else seq.start(k_cache.shape[1])
     valid = torch.arange(start, start + k_cache.shape[1],
@@ -357,9 +367,10 @@ def attn_forward(p: Params, x, cfg: ModelConfig, positions, *,
         if not own_kv:
             k, v = kv_heads(tp.sum_grad(k, ax), tp.sum_grad(v, ax), ax, hq)
     if cfg.attn_mode == "naive":
-        o = attention_naive(q, k, v, causal=causal)
+        o = attention_naive(q, k, v, causal=causal, scale=cfg.softmax_scale)
     else:
-        o = attention_chunked(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+        o = attention_chunked(q, k, v, causal=causal, chunk=cfg.attn_chunk,
+                              scale=cfg.softmax_scale)
     return tp.row(o.reshape(b, s, -1), p["wo"], ax, sp)
 
 
@@ -393,7 +404,7 @@ def flash_attn(p: Params, hn, cfg: ModelConfig, positions, *,
         q = apply_rope(q, positions, cfg.rope_theta)
     kl, vl = (k, v) if ax is None else kv_heads(k, v, ax, hq)
     o = flash_attention(q.contiguous(), kl.contiguous(), vl.contiguous(),
-                        causal=causal)
+                        causal=causal, scale=cfg.softmax_scale)
     return tp.row(o.reshape(b, s, -1), p["wo"], ax, sp), k, v
 
 
@@ -429,7 +440,7 @@ def attn_decode_forward(p: Params, x, cfg: ModelConfig, cache_k, cache_v,
         cache_k[:, at] = k[:, 0].to(cache_k.dtype)
         cache_v[:, at] = v[:, 0].to(cache_v.dtype)
     o = attention_decode(q, cache_k.to(x.dtype), cache_v.to(x.dtype),
-                         cache_len + 1, seq)
+                         cache_len + 1, seq, cfg.softmax_scale)
     return tp.row(o.reshape(b, 1, -1), p["wo"])
 
 

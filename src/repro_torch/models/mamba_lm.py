@@ -118,7 +118,7 @@ class Mamba2LM:
                    ) -> Dict[str, Any]:
         """{name: (shape, dtype)} of the decode cache (O(1) in length)."""
         cfg = self.cfg
-        conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+        conv_dim = cfg.conv_dim
         return {
             "state": ((cfg.n_layers, batch_size, cfg.ssm_heads,
                        cfg.ssm_headdim, cfg.ssm_state), F32),
@@ -189,4 +189,4 @@ def ssm_cache(cfg: ModelConfig, mesh, states, convs) -> Params:
     return {"state": tp.lay_cache(torch.stack(states), mesh, 2,
                                   cfg.ssm_heads),
             "conv": tp.lay_cache(torch.stack(convs), mesh, 3,
-                                 cfg.d_inner + 2 * cfg.ssm_state)}
+                                 cfg.conv_dim)}

@@ -31,11 +31,13 @@ from repro_torch.models.hybrid import Zamba2LM
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.mamba_lm import Mamba2LM
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.zamba2_published import Zamba2PublishedLM
 
 
 def get_model(cfg: ModelConfig):
     """dense/moe/vlm -> TransformerLM, encdec -> EncDecLM, ssm -> Mamba2LM,
-    hybrid -> Zamba2LM; any other family raises ValueError."""
+    hybrid -> Zamba2LM (Zamba2PublishedLM where the config gives
+    ``hybrid_layer_ids``); any other family raises ValueError."""
     if cfg.family in ("dense", "moe", "vlm"):
         return TransformerLM(cfg)
     if cfg.family == "encdec":
@@ -43,6 +45,8 @@ def get_model(cfg: ModelConfig):
     if cfg.family == "ssm":
         return Mamba2LM(cfg)
     if cfg.family == "hybrid":
+        if cfg.hybrid_layer_ids:
+            return Zamba2PublishedLM(cfg)
         return Zamba2LM(cfg)
     raise ValueError(f"unknown family {cfg.family}")
 

@@ -10,6 +10,14 @@ on the CPU), with ``kernel=False`` (``forward`` and the loss) through the
 differentiable ``ssd_chunked``, as the JAX code does
 (``src/repro/models/ssm.py:168``).  The kernel has no backward and
 refuses inputs that require a gradient.
+
+B/C groups (``cfg.ssm_groups``, Mamba2's ``ngroups``): the conv runs over
+x and every group's B and C (``conv_dim = d_inner + 2 g N``), head h reads
+group h // (H / g), and the gated norm is taken per group of ``d_inner /
+g`` channels (``Zamba2RMSNormGated``).  One group takes the JAX package's
+path, B/C [b, s, n]; more give B/C [b, s, g, n] to the scan and the
+decode step.  Groups are computed on one device only (the model axis
+refuses them).
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import tp
 from repro_torch.kernels.ssd import ssd_scan
+from repro_torch.kernels.ssd.ref import by_group
 from repro_torch.models.layers import dense_init, gated_rms_norm, zeros
 
 F32 = torch.float32
@@ -34,7 +43,8 @@ Params = Dict[str, torch.Tensor]
 
 def ssd_reference(x, dt, A, B, C, *, initial_state=None):
     """Sequential scan oracle.  x: [b,s,h,p]; dt: [b,s,h]; A: [h];
-    B/C: [b,s,n].  Returns (y [b,s,h,p], final_state [b,h,p,n])."""
+    B/C: [b,s,n] or [b,s,g,n].  Returns (y [b,s,h,p], final_state
+    [b,h,p,n])."""
     b, s, h, p = x.shape
     n = B.shape[-1]
     state = (torch.zeros((b, h, p, n), dtype=F32, device=x.device)
@@ -46,8 +56,18 @@ def ssd_reference(x, dt, A, B, C, *, initial_state=None):
     return torch.stack(ys, dim=1).to(x.dtype), state
 
 
+def _per_head(t, h: int):
+    """B or C of one step, [b,g,n], as [b,h,n]: head h reads its group."""
+    return t.repeat_interleave(h // t.shape[1], dim=1)
+
+
 def _step(state, x, dt, A, B, C):
     dA = torch.exp(dt * A)                                      # [b,h]
+    if B.dim() == 3:                                            # groups
+        B, C = _per_head(B, x.shape[1]), _per_head(C, x.shape[1])
+        dBx = torch.einsum("bhp,bhn,bh->bhpn", x.to(F32), B.to(F32), dt)
+        state = state * dA[..., None, None] + dBx
+        return state, torch.einsum("bhpn,bhn->bhp", state, C.to(F32))
     dBx = torch.einsum("bhp,bn,bh->bhpn", x.to(F32), B.to(F32), dt)
     state = state * dA[..., None, None] + dBx
     y = torch.einsum("bhpn,bn->bhp", state, C.to(F32))
@@ -58,7 +78,11 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int, initial_state=None):
     """Chunked SSD with the semantics of :func:`ssd_reference`: every
     chunk's summary state at once, then the carry across chunks.  Its
     gradient stays finite where the JAX ``ssd_chunked``'s is NaN (an
-    overflowing decay above the diagonal, ROADMAP C-ref-10)."""
+    overflowing decay above the diagonal, ROADMAP C-ref-10).  B/C
+    [b,s,g,n] (groups) are read per head."""
+    if B.dim() == 4:
+        return by_group(ssd_chunked, x, dt, A, B, C, chunk=chunk,
+                         initial_state=initial_state)
     b, s_orig, h, p = x.shape
     n = B.shape[-1]
     pad = (-s_orig) % chunk
@@ -105,7 +129,7 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int, initial_state=None):
 
 def ssd_step(state, x, dt, A, B, C):
     """Single decode step.  state: [b,h,p,n]; x: [b,h,p]; dt: [b,h];
-    B/C: [b,n]."""
+    B/C: [b,n] or [b,g,n]."""
     state, y = _step(state, x, dt, A, B, C)
     return state, y.to(x.dtype)
 
@@ -118,13 +142,13 @@ def ssd_step(state, x, dt, A, B, C):
 def init_mamba_block(gen: torch.Generator, cfg: ModelConfig, pdt) -> Params:
     d, di, n, nh, w = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
                        cfg.ssm_heads, cfg.ssm_conv)
-    conv_dim = di + 2 * n
+    conv_dim, gn = cfg.conv_dim, cfg.ssm_groups * cfg.ssm_state
     lo, hi = math.log(1e-3), math.log(1e-1)
     dev = gen.device
     u = torch.rand(nh, generator=gen, dtype=F32, device=dev) * (hi - lo) + lo
     dt_bias = torch.log(torch.expm1(torch.exp(u)))
     return {
-        "in_proj": dense_init(gen, (d, 2 * di + 2 * n + nh), pdt),
+        "in_proj": dense_init(gen, (d, 2 * di + 2 * gn + nh), pdt),
         "conv_w": dense_init(gen, (w, conv_dim), pdt,
                              scale=1.0 / math.sqrt(w)),
         "conv_b": zeros(gen, (conv_dim,), pdt),
@@ -158,11 +182,20 @@ def _heads(p: Params):
     return a, d, dtb, (ax if dim is not None else None)
 
 
-def _gated_norm(y, z, w, eps: float, y_ax):
-    """``gated_rms_norm(y, z, w)`` over the whole ``d_inner``: with ``y_ax``
-    ``y`` and ``z`` are the rank's block of it.  Returns (out, axis of
-    out's block or None): a norm weight cut over the model axis gives a
-    block of a whole ``y``."""
+def _gated_norm(y, z, w, eps: float, y_ax, groups: int = 1):
+    """``gated_rms_norm(y, z, w)`` over the whole ``d_inner`` (each of
+    ``groups`` blocks of it apart): with ``y_ax`` ``y`` and ``z`` are the
+    rank's block of it.  Returns (out, axis of out's block or None): a
+    norm weight cut over the model axis gives a block of a whole ``y``."""
+    if groups > 1:
+        if y_ax is not None or tp.part(w)[1] is not None:
+            raise NotImplementedError(
+                "Mamba2 B/C groups on the model axis are not implemented")
+        shape = y.shape
+        yg = y.reshape(*shape[:-1], groups, -1)
+        zg = z.reshape(*shape[:-1], groups, -1)
+        out = gated_rms_norm(yg, zg, w.reshape(groups, -1), eps)
+        return out.reshape(shape), None
     wl, w_dim, w_ax = tp.part(w)
     if y_ax is None and w_dim is not None:
         y, z, y_ax = tp.block(y, -1, w_ax), tp.block(z, -1, w_ax), w_ax
@@ -193,9 +226,10 @@ def mamba_forward(p: Params, x, cfg: ModelConfig, *, initial_state=None,
     (``distributed.tp``), so ``kernel=False`` trains on the shards."""
     b, s, d = x.shape
     di, n, nh, ph = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    g, gn = cfg.ssm_groups, cfg.ssm_groups * cfg.ssm_state
     cdt = x.dtype
     zxbcdt = tp.col_full(x, p["in_proj"], sp)
-    z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * n, nh], dim=-1)
+    z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * gn, nh], dim=-1)
     cw, c_dim, c_ax = tp.part(p["conv_w"])
     c_ax = c_ax if c_dim is not None else None
     xbc = tp.block(xbc, -1, c_ax)
@@ -206,7 +240,9 @@ def mamba_forward(p: Params, x, cfg: ModelConfig, *, initial_state=None,
     else:
         xbc_conv = _causal_conv(xbc, conv_w, conv_b)
     xbc_conv = tp.gather(F.silu(xbc_conv), -1, c_ax)
-    xs, B, C = torch.split(xbc_conv, [di, n, n], dim=-1)
+    xs, B, C = torch.split(xbc_conv, [di, gn, gn], dim=-1)
+    if g > 1:
+        B, C = B.reshape(b, s, g, n), C.reshape(b, s, g, n)
     A_log, D, dt_bias, h_ax = _heads(p)
     # B and C are whole and every rank's heads read them: their gradient
     # is the ranks' parts summed
@@ -226,7 +262,7 @@ def mamba_forward(p: Params, x, cfg: ModelConfig, *, initial_state=None,
     y = y + xh * D.to(cdt)[:, None]
     y = y.reshape(b, s, xh.shape[2] * ph)
     y, y_ax = _gated_norm(y, tp.block(z, -1, h_ax), p["norm_w"],
-                          cfg.norm_eps, h_ax)
+                          cfg.norm_eps, h_ax, g)
     out = tp.row(y, p["out_proj"], y_ax, sp)
     if return_cache:
         w1 = cfg.ssm_conv - 1
@@ -250,9 +286,10 @@ def mamba_step(p: Params, x, cfg: ModelConfig, state, conv_cache):
     the parameters are cut so (the reference's ``cache_shardings``)."""
     b = x.shape[0]
     di, n, nh, ph = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    g, gn = cfg.ssm_groups, cfg.ssm_groups * cfg.ssm_state
     cdt = x.dtype
     zxbcdt = tp.col_full(x[:, 0], p["in_proj"])
-    z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * n, nh], dim=-1)
+    z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * gn, nh], dim=-1)
     cw, c_dim, c_ax = tp.part(p["conv_w"])
     c_ax = c_ax if c_dim is not None else None
     xbc = tp.block(xbc, -1, c_ax)
@@ -261,7 +298,9 @@ def mamba_step(p: Params, x, cfg: ModelConfig, state, conv_cache):
     conv_out = torch.einsum("bwc,wc->bc", window, cw.to(cdt)) + \
         tp.part(p["conv_b"])[0].to(cdt)
     conv_out = tp.gather(F.silu(conv_out), -1, c_ax)
-    xs, B, C = torch.split(conv_out, [di, n, n], dim=-1)
+    xs, B, C = torch.split(conv_out, [di, gn, gn], dim=-1)
+    if g > 1:
+        B, C = B.reshape(b, g, n), C.reshape(b, g, n)
     A_log, D, dt_bias, h_ax = _heads(p)
     dt = F.softplus(tp.block(dt_raw, -1, h_ax).to(F32) + dt_bias)  # [B,H]
     A = -torch.exp(A_log)
@@ -270,7 +309,7 @@ def mamba_step(p: Params, x, cfg: ModelConfig, state, conv_cache):
     state, y = ssd_step(state, xh, dt, A, B, C)
     y = y + xh * D.to(cdt)[:, None]
     y, y_ax = _gated_norm(y.reshape(b, -1), tp.block(z, -1, h_ax),
-                          p["norm_w"], cfg.norm_eps, h_ax)
+                          p["norm_w"], cfg.norm_eps, h_ax, g)
     out = tp.row(y, p["out_proj"], y_ax)[:, None]
     return out, state, window[:, 1:]
 

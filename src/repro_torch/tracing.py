@@ -29,7 +29,10 @@ it starts a request, its id ``RouteStats.requests`` at its start),
 when the launches are enqueued, since the program does not synchronise
 and its caller does), ``decode`` (``ServeEngine.decode``, the cache's copy
 included) and ``decode.step`` (each decode iteration: the model's step,
-the sampling and the token's copy to the host, a synchronisation).
+the sampling and the token's copy to the host, a synchronisation).  The
+published Zamba2 block (``models.zamba2_published``) adds
+``shared_block``, each application of a shared block, in prefill and in
+decode.
 
 Counters are process-wide integers, always on (an add against a step of
 a millisecond or more): :func:`count` adds to one, :func:`counters` reads
@@ -37,7 +40,13 @@ them all and :func:`reset_counters` zeroes them.  The serving path's:
 ``decode.graph_captures`` (a decode step that captured its layout's CUDA
 graph), ``decode.graph_replays`` (a step that replayed one) and
 ``decode.eager_steps`` (a step that ran the eager body on a CUDA device),
-all counted by ``models.decode_graph.DecodeGraphs``.
+all counted by ``models.decode_graph.DecodeGraphs`` (and the last by the
+published Zamba2 block's decode step, which has no graph); and the
+published Zamba2 block's (``models.zamba2_published``):
+``hybrid.shared_apps`` (applications of a shared block),
+``hybrid.prefills`` (prefills), and the bytes of the caches those
+prefills return, ``hybrid.prefix_kv_bytes`` (K/V) and
+``hybrid.prefix_state_bytes`` (SSD state and conv history).
 """
 from __future__ import annotations
 

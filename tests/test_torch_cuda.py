@@ -26,7 +26,12 @@ bf16 operands.  Every ``examples/torch_*.py`` runs on the
 card at a small size (the quickstart's results equal to the CPU's field
 for field, the DS_PGM dead-band aside).  The ssm family's decode step as
 one CUDA graph (``models.decode_graph``) gives the eager body's tokens,
-its logits and caches within bf16 round-off.
+its logits and caches within bf16 round-off.  The published Zamba2 block
+(zamba2-7b-instruct): flash at head dim 224 with its (224/2)^-1/2 scale
+against the plain version (the one-ulp rule) and SDPA, the SSD with 2
+B/C groups against the plain version, and one period of the published
+config (layers 0-6, one shared-block application) served on the card
+against the benchmark's float32 reference.
 """
 import dataclasses
 
@@ -477,7 +482,7 @@ def test_ssd_kernel_counts_launches_and_rejects_bad_inputs(card):
 def _prefill_launches(cfg) -> int:
     """Flash and SSD launches of one prefill of ``cfg``'s model."""
     if cfg.family == "hybrid":
-        return cfg.n_layers + cfg.n_layers // cfg.shared_every
+        return cfg.n_layers + cfg.n_apps
     if cfg.family == "encdec":
         return cfg.enc_layers + 2 * cfg.n_layers
     return cfg.n_layers
@@ -486,7 +491,8 @@ def _prefill_launches(cfg) -> int:
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-370m",
                                   "granite-moe-3b-a800m", "internvl2-1b",
-                                  "zamba2-7b", "seamless-m4t-medium"])
+                                  "zamba2-7b", "seamless-m4t-medium",
+                                  "zamba2-7b-instruct"])
 def test_reduced_serve_path_card_equals_cpu(card, arch):
     """The reduced float32 model on the card (kernels) against the CPU
     (plain versions), same weights: prefill logits and caches at 1e-4,
@@ -1268,3 +1274,134 @@ def test_decode_graph_stays_off_with_grad_or_a_dispatch_mode_on_card(card):
         model.decode_step(params, cache, tok)
     assert tr.ops > 100 and tr.flops > 0
     assert tracing.counters() == {"decode.eager_steps": 2}
+
+
+def _one_ulp(got, want):
+    """bf16 outputs within one bf16 ulp of the float32-p plain version
+    (at least 2^-9), at most 1% differing at all (the rule of
+    ``test_flash_kernel_matches_plain_on_card``)."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
+    ulp[w == 0] = 0.0
+    assert bool((diff <= torch.clamp(ulp, min=2.0 ** -9)).all()), \
+        float(diff.max())
+    assert int((diff > 0).sum()) <= 0.01 * diff.numel(), \
+        float((diff > 0).float().mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,hq,hkv", [
+    (1, 4090, 4090, 32, 32), (2, 77, 77, 4, 4), (1, 48, 200, 4, 2),
+    (1, 200, 48, 4, 2), (1, 1, 1, 2, 2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_at_head_dim_224_on_card(card, b, sq, sk, hq, hkv,
+                                              causal):
+    """Head dim 224 (zamba2-7b-instruct's shared attention; the wgmma
+    kernel pads a fourth 64-column panel) at the published scale
+    (224/2)^-1/2: float32 at 2e-5 and bf16 by the one-ulp rule against the
+    plain version, and both within 3e-2 of SDPA (float32 math on the same
+    inputs) at that scale."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    d, scale = 224, 112 ** -0.5
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+        q, k, v = _qkv(sq + 5, b, sq, hq, hkv, d, dtype, card, sk)
+        got = fa.flash_attention(q, k, v, causal=causal, scale=scale)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        if dtype == torch.bfloat16:
+            _one_ulp(got, want)
+        if sq != sk and causal:
+            continue            # SDPA's causal mask is bottom-right there
+        rep = hq // hkv
+        sdpa = F.scaled_dot_product_attention(
+            q.float().transpose(1, 2),
+            k.float().repeat_interleave(rep, 2).transpose(1, 2),
+            v.float().repeat_interleave(rep, 2).transpose(1, 2),
+            is_causal=causal, scale=scale).transpose(1, 2)
+        torch.testing.assert_close(got.float(), sdpa, rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [
+    (1, 4090, 112, 64, 64, 256), (2, 300, 8, 64, 64, 128),
+    (1, 24, 4, 16, 32, 24), (3, 513, 4, 32, 128, 256)])
+def test_ssd_kernel_with_two_groups_on_card(card, b, s, h, p, n, chunk):
+    """B/C in 2 groups ([b, s, 2, n]; head h reads group h // (h/2)):
+    float32 at 2e-3, bf16 at 3e-2 against the plain version, with and
+    without an entering state, as the one-group test."""
+    from repro_torch.kernels import ssd
+    for dtype, tol in ((torch.float32, 2e-3), (torch.bfloat16, 3e-2)):
+        x, dt, A, B, C = _ssd_inputs(s + h, b, s, h, p, 2 * n, dtype, card)
+        B = B.reshape(b, s, 2, n).contiguous()
+        C = C.reshape(b, s, 2, n).contiguous()
+        st0 = torch.randn((b, h, p, n), device=card,
+                          generator=torch.Generator(card).manual_seed(2))
+        for init in (None, st0):
+            y, st = ssd.ssd_scan(x, dt, A, B, C, chunk=chunk,
+                                 initial_state=init)
+            torch.cuda.synchronize()
+            y_r, st_r = ssd.ssd_scan_ref(x, dt, A, B, C, chunk=chunk,
+                                         initial_state=init)
+            torch.testing.assert_close(y.float(), y_r.float(), rtol=tol,
+                                       atol=tol)
+            torch.testing.assert_close(st, st_r, rtol=2e-3, atol=2e-3)
+
+
+def _bench_reference(name):
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "bench" / "reference" / \
+        f"{name}.py"
+    spec = importlib.util.spec_from_file_location("card_ref", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-3), ("bfloat16", 0.1)])
+def test_published_zamba2_period_served_on_card(card, dtype, tol):
+    """zamba2-7b-instruct at every published width, cut to one period of
+    its layout (layers 0-6, the shared block applied before layer 6),
+    served through ``ServeEngine`` on the card (the SSD kernel with 2
+    groups, flash at head dim 224): the prefill's last logits and 3 decode
+    steps' logits through the cache against the benchmark's float32
+    reference's full forward, relative L2.  Float32 compute at 2e-3 (the
+    kernels' summation orders); bf16 (the configuration's) at 0.1.  Each
+    decode step on the card counts ``decode.eager_steps`` (the model has
+    no decode graph)."""
+    import dataclasses
+
+    from bench.reference import blocks
+    from repro_torch import tracing
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeEngine
+    cfg = dataclasses.replace(get_config("zamba2-7b-instruct"), n_layers=7,
+                              hybrid_layer_ids=(6,), dtype=dtype)
+    params = init_params(cfg, torch.Generator(card).manual_seed(4), card)
+    engine = ServeEngine(cfg, params=params, device=card)
+    toks = torch.randint(0, cfg.vocab, (1, 515),
+                         generator=torch.Generator().manual_seed(5))
+    logits, cache = engine.prefill(toks[:, :512].numpy(), max_len=520)
+    got = [logits[0]]
+    eager = tracing.counters().get("decode.eager_steps", 0)
+    for t in range(512, 515):
+        logits, cache = engine.model.decode_step(params, cache,
+                                                 toks[:, t].to(card))
+        got.append(logits[0])
+    assert tracing.counters().get("decode.eager_steps", 0) == eager + 3
+    blocks.float32_matmuls()
+    with torch.no_grad():
+        ref = _bench_reference("zamba2-7b-instruct").logits(
+            params, dataclasses.asdict(cfg), toks[0].to(card),
+            list(range(511, 515)), blocks.Matmul(False))
+    for g, r in zip(got, ref):
+        err = float((g.float() - r).norm() / r.norm())
+        assert err <= tol, err

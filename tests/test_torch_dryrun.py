@@ -359,17 +359,17 @@ def _recorded(monkeypatch):
 def _skipped_work(calls) -> float:
     """The FLOPs the kernels' masks skip and the JAX prefill computes:
     the masked (query, key) pairs of every causal attention, and the
-    pairs above the diagonal of every SSD chunk (C.B^T once, the weighted
-    sum over p per head)."""
+    pairs above the diagonal of every SSD chunk (C.B^T once a B/C group,
+    the weighted sum over p per head)."""
     from repro_torch.kernels.flash_attention import flash_work
     total = 0
     for b, sq, sk, hq, hkv, d, causal, elem in calls["flash"]:
         total += (flash_work(b, sq, sk, hq, hkv, d, False, elem)[0]
                   - flash_work(b, sq, sk, hq, hkv, d, causal, elem)[0])
-    for b, s, h, p, n, chunk, _ in calls["ssd"]:
+    for b, s, h, p, n, chunk, _, g in calls["ssd"]:
         full, tail = divmod(s, chunk)
         upper = full * chunk * (chunk - 1) // 2 + tail * (tail - 1) // 2
-        total += (2 * n * b + 2 * b * h * p) * upper
+        total += (2 * n * b * g + 2 * b * h * p) * upper
     return total
 
 

@@ -38,6 +38,7 @@ from repro.models import get_model as jax_model
 from repro.models import layers as JL
 from repro.serving import ServeEngine as JaxEngine
 from repro_torch.configs import get_config
+from repro_torch.configs.base import PORT_DEFAULTS
 from repro_torch.launch.serve import main as port_serve
 from repro_torch.models import get_model, make_concrete_batch, params_from_jax
 from repro_torch.models import layers as L
@@ -82,7 +83,8 @@ def _setup(arch, over=()):
     per configuration (nothing below mutates the weights)."""
     cfg = get_config(arch).reduced(**dict(over))
     jcfg = jax_config(arch).reduced(**dict(over))
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(cfg) == {**dataclasses.asdict(jcfg),
+                                       **PORT_DEFAULTS}
     jm = jax_model(jcfg)
     jparams = jm.init(jax.random.PRNGKey(0))
     params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams),

@@ -31,7 +31,8 @@ from repro.configs import get_config as jax_config
 from repro.launch.serve import main as jax_serve
 from repro.models import get_model as jax_model
 from repro.serving import ServeEngine as JaxEngine
-from repro_torch.configs import get_config
+from repro_torch.configs import ModelConfig, get_config
+from repro_torch.configs.base import PORT_DEFAULTS
 from repro_torch.launch.serve import main as port_serve
 from repro_torch.models import get_model, make_concrete_batch, params_from_jax
 from repro_torch.serving import ServeEngine
@@ -55,7 +56,8 @@ def _setup(arch, **over):
     per configuration (nothing below mutates the weights)."""
     cfg = get_config(arch).reduced(**over)
     jcfg = jax_config(arch).reduced(**over)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(cfg) == {**dataclasses.asdict(jcfg),
+                                       **PORT_DEFAULTS}
     jm = jax_model(jcfg)
     jparams = jm.init(jax.random.PRNGKey(0))
     params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams),
@@ -77,9 +79,14 @@ def test_configs_equal_jax():
     from repro.configs import ARCHS as JAX_ARCHS
     from repro_torch.configs import ARCHS as PORT_ARCHS
     assert PORT_ARCHS == JAX_ARCHS
+    # the JAX package's fields equal, the port's own (B/C groups, the
+    # published Zamba2 block's) at their defaults for every one of its archs
+    defaults = {f.name: f.default for f in dataclasses.fields(ModelConfig)
+                if f.name in PORT_DEFAULTS}
+    assert defaults == PORT_DEFAULTS
     for arch in PORT_ARCHS:
-        assert dataclasses.asdict(get_config(arch)) == \
-            dataclasses.asdict(jax_config(arch))
+        assert dataclasses.asdict(get_config(arch)) == {
+            **dataclasses.asdict(jax_config(arch)), **PORT_DEFAULTS}
         assert get_config(arch).param_count() == \
             jax_config(arch).param_count()
 

@@ -55,6 +55,7 @@ def test_port_imports_neither_jax_nor_reference():
                  "repro_torch.models.layers", "repro_torch.models.transformer",
                  "repro_torch.models.ssm", "repro_torch.models.mamba_lm",
                  "repro_torch.models.hybrid", "repro_torch.models.encdec",
+                 "repro_torch.models.zamba2_published",
                  "repro_torch.configs.zamba2_7b",
                  "repro_torch.configs.seamless_m4t_medium",
                  "repro_torch.configs.internvl2_1b",
@@ -332,7 +333,8 @@ def test_other_families_raise_not_implemented():
                         ("granite-moe-3b-a800m", "TransformerLM"),
                         ("internvl2-1b", "TransformerLM"),
                         ("seamless-m4t-medium", "EncDecLM"),
-                        ("zamba2-7b", "Zamba2LM")):
+                        ("zamba2-7b", "Zamba2LM"),
+                        ("zamba2-7b-instruct", "Zamba2PublishedLM")):
         cfg = get_config(arch).reduced()
         built = get_model(cfg)
         assert type(built).__name__ == model and built.cfg == cfg

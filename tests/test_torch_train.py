@@ -55,6 +55,7 @@ from repro.optim import lr_at as j_lr_at
 from repro.optim import make_train_step as j_make_train_step
 from repro.optim.adamw import clip_by_global_norm as j_clip
 from repro_torch.configs import get_config
+from repro_torch.configs.base import PORT_DEFAULTS
 from repro_torch.data import DataConfig, SyntheticLMData, to_device
 from repro_torch.distributed import compression as comp
 from repro_torch.kernels.flash_attention import flash_attention
@@ -99,7 +100,8 @@ def _setup(case_id):
     _, arch, over = _case(case_id)
     cfg = get_config(arch).reduced(**dict(over))
     jcfg = jax_config(arch).reduced(**dict(over))
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert dataclasses.asdict(cfg) == {**dataclasses.asdict(jcfg),
+                                       **PORT_DEFAULTS}
     jm = jax_model(jcfg)
     jparams = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
     data = SyntheticLMData(DataConfig(batch=BATCH, seq=SEQ, vocab=256,
