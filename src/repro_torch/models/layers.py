@@ -52,14 +52,16 @@ normed its block of a sequence-parallel residual.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding as shd
@@ -70,6 +72,8 @@ NEG_INF = -2.0e38
 F32 = torch.float32
 
 Params = Dict[str, torch.Tensor]
+#: a decode cache's length: an int, or a 0-d int64 tensor on the device
+Length = Union[int, torch.Tensor]
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -135,11 +139,25 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
                             / head_dim))
 
 
+@functools.lru_cache(maxsize=32)
+def rope_freqs_on(head_dim: int, theta: float,
+                  device: torch.device) -> torch.Tensor:
+    """:func:`rope_freqs` as a float32 tensor on ``device``, made once per
+    (head dim, theta, device): a CUDA graph's step cannot copy host memory
+    to the card, so the first call has to come before any capture (a
+    decode graph's warm-up makes it).  It is made outside any dispatch
+    mode, so that a cost trace counts the same operations whether or not
+    an earlier call made it.  Callers only read it."""
+    with _disable_current_modes(), torch.inference_mode(False), \
+            torch.no_grad():
+        return torch.as_tensor(rope_freqs(head_dim, theta), device=device)
+
+
 def apply_rope(x, positions, theta: float):
     """x: [..., S, H, D]; positions: [..., S] integers.  Split halves (not
     interleaved), computed in float32."""
     d = x.shape[-1]
-    freqs = torch.as_tensor(rope_freqs(d, theta), device=x.device)  # [D/2]
+    freqs = rope_freqs_on(d, theta, x.device)                      # [D/2]
     ang = positions[..., None].to(F32) * freqs                     # [..., S, D/2]
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     xf1, xf2 = x[..., : d // 2].to(F32), x[..., d // 2:].to(F32)
@@ -234,11 +252,13 @@ def local_position(pos: int, local_len: int, seq: Optional[SeqShard]):
     return i if 0 <= i < local_len else None
 
 
-def attention_decode(q, k_cache, v_cache, cache_len: int,
+def attention_decode(q, k_cache, v_cache, cache_len: Length,
                      seq: Optional[SeqShard] = None,
                      scale: Optional[float] = None):
     """Single-step decode.  q: [B,1,Hq,D]; caches: [B,Smax,Hkv,D]; the
-    first ``cache_len`` cache positions are attended.  With ``seq`` the
+    first ``cache_len`` cache positions are attended (an int, or a 0-d
+    integer tensor on q's device: the mask is then a device comparison,
+    the same values).  With ``seq`` the
     caches are this rank's slice of the sequence, and the softmax runs
     as XLA partitions it: local scores masked by their global positions,
     a MAX all-reduce of the row maxima (exact), the local ``exp`` and a
@@ -426,19 +446,35 @@ def zero_cache(spec, device) -> Dict:
 
 
 def attn_decode_forward(p: Params, x, cfg: ModelConfig, cache_k, cache_v,
-                        cache_len: int, seq: Optional[SeqShard] = None):
+                        cache_len: Length, seq: Optional[SeqShard] = None):
     """One-token attention with a KV cache update.  x: [B,1,d]; the caches
     [B,Smax,Hkv,D] get the new token's k, v written at ``cache_len`` in
     place (with ``seq``: the caches are this rank's sequence slice, and
     only the rank whose slice holds ``cache_len`` writes).  Returns out
-    [B,1,d]."""
+    [B,1,d].
+
+    ``cache_len`` is an int, or a 0-d int64 tensor on ``x``'s device (a
+    CUDA graph's step, whose length changes between replays): the rotary
+    position, the write and the mask are then device operations on it,
+    with the same values, and the caller keeps it below ``Smax`` (no
+    ``seq``: one device)."""
     b = x.shape[0]
-    pos = torch.full((b, 1), cache_len, dtype=torch.int64, device=x.device)
-    q, k, v = qkv_proj(p, x, cfg, pos)
-    at = local_position(cache_len, cache_k.shape[1], seq)
-    if at is not None:
-        cache_k[:, at] = k[:, 0].to(cache_k.dtype)
-        cache_v[:, at] = v[:, 0].to(cache_v.dtype)
+    if isinstance(cache_len, torch.Tensor):
+        if seq is not None:
+            raise ValueError("a tensor cache length decodes on one device: "
+                             "a sequence-sharded cache takes an int")
+        q, k, v = qkv_proj(p, x, cfg, cache_len.reshape(1, 1).expand(b, 1))
+        at = cache_len.reshape(1)
+        cache_k.index_copy_(1, at, k.to(cache_k.dtype))
+        cache_v.index_copy_(1, at, v.to(cache_v.dtype))
+    else:
+        pos = torch.full((b, 1), cache_len, dtype=torch.int64,
+                         device=x.device)
+        q, k, v = qkv_proj(p, x, cfg, pos)
+        at = local_position(cache_len, cache_k.shape[1], seq)
+        if at is not None:
+            cache_k[:, at] = k[:, 0].to(cache_k.dtype)
+            cache_v[:, at] = v[:, 0].to(cache_v.dtype)
     o = attention_decode(q, cache_k.to(x.dtype), cache_v.to(x.dtype),
                          cache_len + 1, seq, cfg.softmax_scale)
     return tp.row(o.reshape(b, 1, -1), p["wo"])

@@ -24,17 +24,26 @@ Parameters are ``{"embed", "layers": [{"m", "ln"}, ...], "shared":
 the embedding where it is set); the shared blocks' ``ln1`` and q/k/v rows
 are 2 d wide.  The cache: ``state`` [L, B, H, P, N] float32, ``conv`` [L,
 B, W-1, conv_dim], ``k``/``v`` [n_apps, B, Smax, Hkv, D] in the compute
-type, and ``len``.  The prefill runs each Mamba block's scan through the
-SSD kernel and each application's causal attention through the flash
-kernel, under ``torch.no_grad()``; ``forward`` reaches no kernel
-(``ssm.ssd_chunked``, plain attention); decode is plain torch
-(``ssm.mamba_step``, ``layers.attn_decode_forward``).
+type, and ``len`` (an int from the prefill, a 0-d int64 tensor on the
+device after a decode step).  The prefill runs each Mamba block's scan
+through the SSD kernel and each application's causal attention through
+the flash kernel, under ``torch.no_grad()``; ``forward`` reaches no
+kernel (``ssm.ssd_chunked``, plain attention); decode is plain torch
+(``ssm.mamba_step``, ``layers.attn_decode_forward``).  ``decode_step`` on
+plain CUDA tensors with autograd off is one CUDA graph replay a token
+(``models.decode_graph``, as ``Mamba2LM``'s): the eager body captured once
+per input layout, the length read from and advanced in its device tensor,
+so that one graph serves every position; every other input runs the eager
+body.
 
 Each application runs in a ``shared_block`` span (``repro_torch.tracing``)
-and counts ``hybrid.shared_apps``; each prefill counts ``hybrid.prefills``
-and the bytes of the cache it returns, ``hybrid.prefix_kv_bytes`` (k, v)
-and ``hybrid.prefix_state_bytes`` (state, conv); each decode step on a
-CUDA device counts ``decode.eager_steps`` (it has no decode graph).
+and counts ``hybrid.shared_apps`` where the body runs: the prefill, an
+eager decode step, and a graph's warm-up and capture; a replay counts
+neither (``decode.graph_replays`` counts it).  Each prefill counts
+``hybrid.prefills`` and the bytes of the cache it returns,
+``hybrid.prefix_kv_bytes`` (k, v) and ``hybrid.prefix_state_bytes``
+(state, conv); decode steps count ``decode.graph_captures``,
+``decode.graph_replays`` and ``decode.eager_steps`` (``DecodeGraphs``).
 
 Departures from the equations: none.  Of the arithmetic: norms keep the
 port's ``(1 + w)`` weight (a published weight w' is 1 + w), and dt is not
@@ -58,6 +67,7 @@ from repro_torch.distributed import tp
 from repro_torch.distributed.sharding import unshard
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
+from repro_torch.models.decode_graph import DecodeGraphs
 
 F32 = torch.float32
 Params = Dict[str, Any]
@@ -76,6 +86,7 @@ class Zamba2PublishedLM:
         self.cfg = cfg
         self.pdt = L.dtype_of(cfg.param_dtype)
         self.cdt = L.dtype_of(cfg.dtype)
+        self._graphs = DecodeGraphs()
 
     def init(self, gen: torch.Generator) -> Params:
         """Random weights drawn from ``gen`` on its device."""
@@ -219,13 +230,24 @@ class Zamba2PublishedLM:
                                                           Params]:
         """tokens: [B] -> (logits [B, V], cache with ``len`` + 1).  The
         cache's buffers are updated in place (``ServeEngine.decode`` works
-        on a copy)."""
+        on a copy), ``len`` too where it is a tensor; an int ``len`` (a
+        prefill's cache) becomes a 0-d int64 tensor on the tokens' device
+        in the cache returned.  Plain CUDA inputs with autograd off replay
+        a CUDA graph of the step (``models.decode_graph``); the logits
+        returned are then a copy of the graph's."""
+        if not isinstance(cache["len"], torch.Tensor):
+            cache = {**cache, "len": torch.full(
+                (), cache["len"], dtype=torch.int64, device=tokens.device)}
+        return self._graphs(self._decode_eager, params, cache, tokens)
+
+    def _decode_eager(self, params, cache, tokens):
+        """:meth:`decode_step`'s body, run eagerly (and captured): every
+        use of the length ``cache["len"]`` (a 0-d tensor) is a device
+        operation, and it advances in place."""
         cfg = self.cfg
         _one_device([params, cache, tokens], "decode step")
-        if tokens.is_cuda:
-            tracing.count("decode.eager_steps")
         x = self._embed(params, tokens)[:, None]
-        clen = int(cache["len"])
+        n = cache["len"]
         state, conv = cache["state"], cache["conv"]
         app = iter(range(cfg.n_apps))
 
@@ -237,7 +259,8 @@ class Zamba2PublishedLM:
         def attend(p, hn):
             j = next(app)
             return L.attn_decode_forward(p, hn, cfg, cache["k"][j],
-                                         cache["v"][j], clen)
+                                         cache["v"][j], n)
 
         x = self._layers(params, x, x, mamba, attend)
-        return self._logits(params, x)[:, 0], {**cache, "len": clen + 1}
+        n.add_(1)
+        return self._logits(params, x)[:, 0], cache

@@ -40,12 +40,11 @@ them all and :func:`reset_counters` zeroes them.  The serving path's:
 ``decode.graph_captures`` (a decode step that captured its layout's CUDA
 graph), ``decode.graph_replays`` (a step that replayed one) and
 ``decode.eager_steps`` (a step that ran the eager body on a CUDA device),
-all counted by ``models.decode_graph.DecodeGraphs`` (and the last by the
-published Zamba2 block's decode step, which has no graph); and the
-published Zamba2 block's (``models.zamba2_published``):
-``hybrid.shared_apps`` (applications of a shared block),
-``hybrid.prefills`` (prefills), and the bytes of the caches those
-prefills return, ``hybrid.prefix_kv_bytes`` (K/V) and
+all counted by ``models.decode_graph.DecodeGraphs``; and the published
+Zamba2 block's (``models.zamba2_published``): ``hybrid.shared_apps``
+(applications of a shared block where its code runs: a graph's replay
+runs none), ``hybrid.prefills`` (prefills), and the bytes of the caches
+those prefills return, ``hybrid.prefix_kv_bytes`` (K/V) and
 ``hybrid.prefix_state_bytes`` (SSD state and conv history).
 """
 from __future__ import annotations

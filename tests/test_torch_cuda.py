@@ -31,7 +31,8 @@ its logits and caches within bf16 round-off.  The published Zamba2 block
 against the plain version (the one-ulp rule) and SDPA, the SSD with 2
 B/C groups against the plain version, and one period of the published
 config (layers 0-6, one shared-block application) served on the card
-against the benchmark's float32 reference.
+against the benchmark's float32 reference; its decode step as one CUDA
+graph, its length in a device tensor, equals the eager body bit for bit.
 """
 import dataclasses
 
@@ -1364,6 +1365,17 @@ def _bench_reference(name):
     return mod
 
 
+def _published_period(card, dtype):
+    """zamba2-7b-instruct at every published width, cut to one period of
+    its layout (layers 0-6, the shared block applied before layer 6)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model, init_params
+    cfg = dataclasses.replace(get_config("zamba2-7b-instruct"), n_layers=7,
+                              hybrid_layer_ids=(6,), dtype=dtype)
+    params = init_params(cfg, torch.Generator(card).manual_seed(4), card)
+    return cfg, get_model(cfg), params
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-3), ("bfloat16", 0.1)])
 def test_published_zamba2_period_served_on_card(card, dtype, tol):
@@ -1373,30 +1385,28 @@ def test_published_zamba2_period_served_on_card(card, dtype, tol):
     groups, flash at head dim 224): the prefill's last logits and 3 decode
     steps' logits through the cache against the benchmark's float32
     reference's full forward, relative L2.  Float32 compute at 2e-3 (the
-    kernels' summation orders); bf16 (the configuration's) at 0.1.  Each
-    decode step on the card counts ``decode.eager_steps`` (the model has
-    no decode graph)."""
-    import dataclasses
-
+    kernels' summation orders); bf16 (the configuration's) at 0.1.  The
+    decode steps, autograd off, go through the decode graph: one capture
+    and two replays, no eager step."""
     from bench.reference import blocks
     from repro_torch import tracing
-    from repro_torch.configs import get_config
-    from repro_torch.models import init_params
     from repro_torch.serving import ServeEngine
-    cfg = dataclasses.replace(get_config("zamba2-7b-instruct"), n_layers=7,
-                              hybrid_layer_ids=(6,), dtype=dtype)
-    params = init_params(cfg, torch.Generator(card).manual_seed(4), card)
+    cfg, _, params = _published_period(card, dtype)
     engine = ServeEngine(cfg, params=params, device=card)
     toks = torch.randint(0, cfg.vocab, (1, 515),
                          generator=torch.Generator().manual_seed(5))
     logits, cache = engine.prefill(toks[:, :512].numpy(), max_len=520)
     got = [logits[0]]
-    eager = tracing.counters().get("decode.eager_steps", 0)
-    for t in range(512, 515):
-        logits, cache = engine.model.decode_step(params, cache,
-                                                 toks[:, t].to(card))
-        got.append(logits[0])
-    assert tracing.counters().get("decode.eager_steps", 0) == eager + 3
+    names = ("decode.graph_captures", "decode.graph_replays",
+             "decode.eager_steps")
+    before = [tracing.counters().get(n, 0) for n in names]
+    with torch.no_grad():
+        for t in range(512, 515):
+            logits, cache = engine.model.decode_step(params, cache,
+                                                     toks[:, t].to(card))
+            got.append(logits[0])
+    after = [tracing.counters().get(n, 0) for n in names]
+    assert [a - b for a, b in zip(after, before)] == [1, 2, 0]
     blocks.float32_matmuls()
     with torch.no_grad():
         ref = _bench_reference("zamba2-7b-instruct").logits(
@@ -1405,3 +1415,69 @@ def test_published_zamba2_period_served_on_card(card, dtype, tol):
     for g, r in zip(got, ref):
         err = float((g.float() - r).norm() / r.norm())
         assert err <= tol, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_published_zamba2_decode_graph_is_the_eager_body_on_card(card,
+                                                                 dtype):
+    """One period of the published widths, 6 decode steps from a
+    512-token prefill through ``decode_step`` (the graph) and through the
+    eager body on a copy: the logits and every cache tensor bit-equal
+    after every step, the length among them.  Counters: one capture, five
+    replays, no eager step; the shared block's applications are counted
+    where its code runs, the graph's warm-up and capture, and not by a
+    replay."""
+    from repro_torch import tracing
+    from repro_torch.models.decode_graph import WARMUP
+    cfg, model, params = _published_period(card, dtype)
+    prompt = torch.randint(0, cfg.vocab, (1, 512), device=card,
+                           generator=torch.Generator(card).manual_seed(5))
+    with torch.no_grad():
+        _, cache = model.prefill(params, {"tokens": prompt}, max_len=520)
+    mine = {k: v.clone() for k, v in cache.items() if k != "len"}
+    mine["len"] = torch.tensor(512, device=card)
+    tok = torch.zeros(1, dtype=torch.int64, device=card)
+    tracing.reset_counters()
+    with torch.no_grad():
+        for step in range(6):
+            apps = tracing.counters().get("hybrid.shared_apps", 0)
+            got, cache = model.decode_step(params, cache, tok)
+            apps = tracing.counters()["hybrid.shared_apps"] - apps
+            assert apps == (cfg.n_apps * (WARMUP + 1) if step == 0 else 0)
+            want, mine = model._decode_eager(params, mine, tok)
+            assert torch.equal(got, want), step
+            for name in mine:
+                assert torch.equal(cache[name], mine[name]), (step, name)
+            assert int(cache["len"]) == 513 + step
+            tok = got.argmax(-1)
+    got = tracing.counters()
+    assert (got["decode.graph_captures"], got["decode.graph_replays"],
+            got.get("decode.eager_steps", 0)) == (1, 5, 0)
+
+
+@pytest.mark.cuda
+def test_published_zamba2_graph_stays_off_with_grad_or_a_dispatch_mode_on_card(
+        card):
+    """As the ssm family's: autograd on, or the dry run's cost trace
+    active, runs the published block's eager body, counted as eager steps
+    (and its applications of the shared blocks), and the cost trace sees
+    every operation."""
+    from repro_torch import tracing
+    from repro_torch.configs import get_config
+    from repro_torch.launch.cost import CostTrace
+    from repro_torch.models import get_model, init_params
+    cfg = get_config("zamba2-7b-instruct").reduced(
+        head_dim=32, attn_scale=16 ** -0.5, ssm_chunk=8)
+    model = get_model(cfg)
+    params = init_params(cfg, torch.Generator(card).manual_seed(1), card)
+    cache = model.init_cache(1, 16, device=card)
+    tok = torch.zeros(1, dtype=torch.int64, device=card)
+    tracing.reset_counters()
+    model.decode_step(params, cache, tok)
+    with torch.no_grad(), CostTrace() as tr:
+        model.decode_step(params, cache, tok)
+    assert tr.ops > 100 and tr.flops > 0
+    assert tracing.counters() == {"decode.eager_steps": 2,
+                                  "hybrid.shared_apps": 2 * cfg.n_apps}
+    assert not model._graphs._graphs

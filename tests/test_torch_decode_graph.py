@@ -2,8 +2,14 @@
 process-wide counters of ``repro_torch.tracing``; ``Mamba2LM.decode_step``
 on the CPU runs its eager body bit for bit and counts no capture, replay
 or eager step on the card; the meta device's dry run of decode still
-traces every operation.  The graph itself runs only on a card
-(``tests/test_torch_cuda.py``)."""
+traces every operation.  The published Zamba2 block's graph reads its K/V
+length from a 0-d device tensor: the decode attention with such a length
+is the int-length path bit for bit, the rotary frequencies kept on the
+device are ``rope_freqs``, and its ``decode_step`` gives the same logits
+and cache from an int length and from a tensor one.  The graph itself
+runs only on a card (``tests/test_torch_cuda.py``)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -12,6 +18,7 @@ from repro_torch import tracing
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.models import get_model, init_params
+from repro_torch.models import layers as L
 from repro_torch.serving import ServeEngine
 
 
@@ -103,3 +110,116 @@ def test_meta_dry_run_of_decode_traces_every_operation():
     assert got["ops"] > 0 and got["flops"] > 0
     assert tracing.counters() == {}
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,d,scale", [(4, 2, 64, 0.0),
+                                            (32, 32, 224, 112 ** -0.5)])
+def test_decode_attention_with_a_tensor_length_is_the_int_path(hq, hkv, d,
+                                                               scale, dtype):
+    """GQA at D = 64 and the published block's 32/32 heads at D = 224:
+    ``attn_decode_forward`` with a 0-d tensor length writes k, v at the
+    same position and returns the same output as with the int, and
+    ``attention_decode`` masks alike at every length; bit for bit."""
+    cfg = dataclasses.replace(get_config("smollm-135m"), d_model=48,
+                              n_heads=hq, n_kv_heads=hkv, head_dim=d,
+                              attn_scale=scale)
+    gen = torch.Generator().manual_seed(d + hq)
+    p = {k: w.to(dtype) for k, w in
+         L.init_attn(gen, cfg, torch.float32).items()}
+    x = torch.randn(2, 1, 48, generator=gen).to(dtype)
+    smax, n = 12, 7
+    k0, v0 = (torch.randn(2, smax, hkv, d, generator=gen).to(dtype)
+              for _ in range(2))
+    ki, vi, kt, vt = k0.clone(), v0.clone(), k0.clone(), v0.clone()
+    want = L.attn_decode_forward(p, x, cfg, ki, vi, n)
+    got = L.attn_decode_forward(p, x, cfg, kt, vt, torch.tensor(n))
+    assert torch.equal(got, want)
+    assert torch.equal(kt, ki) and torch.equal(vt, vi)
+    rest = [i for i in range(smax) if i != n]
+    assert torch.equal(ki[:, rest], k0[:, rest])
+    assert not torch.equal(ki[:, n], k0[:, n])
+    q = torch.randn(2, 1, hq, d, generator=gen).to(dtype)
+    for length in (1, n, smax):
+        assert torch.equal(
+            L.attention_decode(q, k0, v0, torch.tensor(length),
+                               scale=cfg.softmax_scale),
+            L.attention_decode(q, k0, v0, length, scale=cfg.softmax_scale))
+    with pytest.raises(ValueError, match="one device"):
+        L.attn_decode_forward(p, x, cfg, kt, vt, torch.tensor(n),
+                              seq=L.SeqShard(0, 2, ()))
+
+
+def test_rope_frequencies_kept_on_the_device_are_rope_freqs():
+    """Made once per (head dim, theta, device) from ``rope_freqs``, the
+    same float32 values, and ``apply_rope`` with them equals the rotation
+    with frequencies copied from the host at the call."""
+    cpu = torch.device("cpu")
+    for d, theta in ((64, 10000.0), (224, 10000.0), (112, 500000.0)):
+        f = L.rope_freqs_on(d, theta, cpu)
+        assert f.dtype == torch.float32 and f.device == cpu
+        assert torch.equal(f, torch.from_numpy(L.rope_freqs(d, theta)))
+        assert L.rope_freqs_on(d, theta, cpu) is f
+    x = torch.randn(2, 5, 3, 64, generator=torch.Generator().manual_seed(0))
+    pos = torch.arange(3, 8)[None]
+    ang = pos[..., None].float() * torch.as_tensor(L.rope_freqs(64, 1e4))
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    want = torch.cat([x[..., :32] * cos - x[..., 32:] * sin,
+                      x[..., 32:] * cos + x[..., :32] * sin], dim=-1)
+    assert torch.equal(L.apply_rope(x, pos, 1e4), want)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_a_cost_trace_of_rotary_counts_alike_first_and_after(device):
+    """The dry run's cost trace counts the same operations for the call
+    that makes a (head dim, theta, device)'s frequencies as for a later
+    one: they are made outside the trace."""
+    from repro_torch.launch.cost import CostTrace
+    x = torch.zeros(1, 3, 2, 48, device=device)
+    pos = torch.arange(3, device=device)[None]
+    ops = []
+    for _ in range(2):
+        with CostTrace() as tr:
+            L.apply_rope(x, pos, 4321.0 if device == "cpu" else 4322.0)
+        ops.append(tr.ops)
+    assert ops[0] == ops[1] > 0
+
+
+def test_published_decode_step_takes_an_int_or_a_tensor_length():
+    """From one prefill's cache, four steps with the prefill's int length
+    and four with the same length as a 0-d tensor: equal logits and
+    caches, bit for bit; the length advances by one a step (in place
+    where it is a tensor, into a tensor where it was an int, leaving the
+    prefill's cache as it was); every step runs the body on the CPU
+    (each application of the shared blocks counted), no graph."""
+    cfg = get_config("zamba2-7b-instruct").reduced(
+        head_dim=32, attn_scale=16 ** -0.5, ssm_chunk=8)
+    model = get_model(cfg)
+    params = init_params(cfg, torch.Generator().manual_seed(2), "cpu")
+    toks = torch.randint(0, cfg.vocab, (1, 13),
+                         generator=torch.Generator().manual_seed(3))
+    _, cache = model.prefill(params, {"tokens": toks[:, :9]}, max_len=16)
+    assert cache["len"] == 9 and not isinstance(cache["len"], torch.Tensor)
+    a = {k: v.clone() if isinstance(v, torch.Tensor) else v
+         for k, v in cache.items()}
+    b = {k: v.clone() if isinstance(v, torch.Tensor) else torch.tensor(v)
+         for k, v in cache.items()}
+    n_b = b["len"]
+    for t in range(9, 13):
+        la, a = model.decode_step(params, a, toks[:, t])
+        lb, out = model.decode_step(params, b, toks[:, t])
+        assert out is b and b["len"] is n_b
+        assert torch.equal(la, lb)
+        for name in cache:
+            assert torch.equal(a[name], b[name]), name
+        assert a["len"].dtype == torch.int64 and a["len"].dim() == 0
+        assert int(a["len"]) == int(b["len"]) == t + 1
+    assert cache["len"] == 9
+    assert tracing.counters() == {"hybrid.prefills": 1,
+                                  "hybrid.prefix_kv_bytes":
+                                  cache["k"].nbytes + cache["v"].nbytes,
+                                  "hybrid.prefix_state_bytes":
+                                  cache["state"].nbytes +
+                                  cache["conv"].nbytes,
+                                  "hybrid.shared_apps": cfg.n_apps * 9}
+    assert not model._graphs._graphs
