@@ -8,6 +8,12 @@ itself in ``SINKS`` while active): the card's launch, the CPU's plain
 version and the meta device's shape-only path all report the same
 FLOPs and bytes, and the plain version's own operations are not counted
 twice.
+
+Each kernel module counts its card launches in a dict of its own
+(``LAUNCHES``), made by :func:`launch_counter` and so listed in
+``LAUNCH_COUNTERS``: a CUDA graph that replays a captured step
+(``models.decode_graph``) launches no kernel through the wrappers, and
+adds to every listed counter what its capture counted.
 """
 from contextlib import contextmanager
 
@@ -16,6 +22,16 @@ import torch
 #: listeners of kernel calls: objects with ``kernel_enter(name, flops,
 #: nbytes)`` and ``kernel_exit()``
 SINKS: list = []
+#: every kernel module's launch counter (its ``LAUNCHES``)
+LAUNCH_COUNTERS: list = []
+
+
+def launch_counter(*names: str) -> dict:
+    """A kernel module's ``LAUNCHES``: a count for each of ``names``, 0 to
+    start, listed in ``LAUNCH_COUNTERS``."""
+    counter = dict.fromkeys(names, 0)
+    LAUNCH_COUNTERS.append(counter)
+    return counter
 
 
 @contextmanager

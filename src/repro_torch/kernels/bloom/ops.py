@@ -23,10 +23,11 @@ import numpy as np
 import torch
 
 from repro_torch.device import I64, DeviceLike, resolve_device, tensor_device
+from repro_torch.kernels import launch_counter
 from repro_torch.kernels.bloom import ref
 
 #: kernel launches since the last ``reset_launches()``
-LAUNCHES = {"bloom_probe": 0}
+LAUNCHES = launch_counter("bloom_probe")
 #: keys hashed per scatter step of ``build_indicator`` (bounds its
 #: [keys, k] int64 working set near 320 MB at k = 10)
 BUILD_CHUNK = 1 << 22

@@ -39,11 +39,11 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, tensor_device
-from repro_torch.kernels import kernel_call, refuse_grad
+from repro_torch.kernels import kernel_call, launch_counter, refuse_grad
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 #: kernel launches since the last ``reset_launches()``
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = launch_counter("flash_attention")
 #: head dims the kernel is instantiated for (112: zamba2-7b's shared
 #: attention, d 3584 over 32 heads; 224: zamba2-7b-instruct's, the 7168-wide
 #: [x, embeddings] over 32 heads)

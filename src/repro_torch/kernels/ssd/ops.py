@@ -36,11 +36,11 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, tensor_device
-from repro_torch.kernels import kernel_call, refuse_grad
+from repro_torch.kernels import kernel_call, launch_counter, refuse_grad
 from repro_torch.kernels.ssd.ref import ssd_scan_ref
 
 #: kernel launches since the last ``reset_launches()``
-LAUNCHES = {"ssd_scan": 0}
+LAUNCHES = launch_counter("ssd_scan")
 HEAD_DIMS = (16, 32, 64)
 MAX_CHUNK = 256
 MAX_STATE = 8192

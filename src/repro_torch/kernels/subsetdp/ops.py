@@ -23,10 +23,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import F64, I64, DeviceLike, tensor_device
+from repro_torch.kernels import launch_counter
 from repro_torch.kernels.subsetdp import ref
 
 #: kernel launches per entry point since the last ``reset_launches()``
-LAUNCHES = {"subset_prod": 0, "subset_argmin": 0}
+LAUNCHES = launch_counter("subset_prod", "subset_argmin")
 #: largest n the kernel takes (a warp per row above UNROLL_MAX_N)
 MAX_N = 16
 #: largest n the kernel walks a row per thread, fully unrolled (the main

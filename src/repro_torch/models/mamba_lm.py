@@ -18,9 +18,11 @@ residual sequence-parallel under mesh rules (the train step's too). The prefill'
 holds the rank's SSM heads and conv channels (``tp.lay_cache``), as
 the reference's ``cache_shardings`` lays them out.
 
-``decode_step`` on plain CUDA tensors with autograd off is one CUDA graph
-replay a token (``models.decode_graph``): the eager step captured once per
-input layout; every other input runs the eager step.
+``decode_step`` and ``prefill`` on plain CUDA tensors with autograd off
+are each one CUDA graph replay (``models.decode_graph``): the eager step
+or prefill captured once per input layout (a prefill's layout at its
+second call, while a graph of it may be kept); every other input runs it
+eagerly.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from repro_torch.distributed import tp
 from repro_torch.distributed.sharding import unshard
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
-from repro_torch.models.decode_graph import DecodeGraphs
+from repro_torch.models.decode_graph import DecodeGraphs, PrefillGraphs
 from repro_torch.models.transformer import _remat, lm_loss
 
 F32 = torch.float32
@@ -47,6 +49,7 @@ class Mamba2LM:
         self.pdt = L.dtype_of(cfg.param_dtype)
         self.cdt = L.dtype_of(cfg.dtype)
         self._graphs = DecodeGraphs()
+        self._prefill_graphs = PrefillGraphs()
 
     def init(self, gen: torch.Generator) -> Params:
         """Random weights drawn from ``gen`` on its device."""
@@ -134,10 +137,17 @@ class Mamba2LM:
         return {name: torch.zeros(shape, dtype=dt, device=dev)
                 for name, (shape, dt) in self.cache_spec(batch_size).items()}
 
-    @torch.no_grad()
     def prefill(self, params, batch) -> Tuple[torch.Tensor, Params]:
         """Last-token logits [B, V] and the per-layer SSD states and conv
-        histories."""
+        histories, new tensors.  Plain CUDA inputs with autograd off replay
+        a CUDA graph of the prefill (``models.decode_graph``), from their
+        layout's second call on where a graph of it is kept, and return
+        copies of its outputs."""
+        return self._prefill_graphs(self._prefill_eager, params, batch)
+
+    @torch.no_grad()
+    def _prefill_eager(self, params, batch):
+        """:meth:`prefill`'s body, run eagerly (and captured)."""
         cfg = self.cfg
         mesh = tp.mesh_of(params)
         params = tp.localize(params)

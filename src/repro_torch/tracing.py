@@ -40,7 +40,10 @@ them all and :func:`reset_counters` zeroes them.  The serving path's:
 ``decode.graph_captures`` (a decode step that captured its layout's CUDA
 graph), ``decode.graph_replays`` (a step that replayed one) and
 ``decode.eager_steps`` (a step that ran the eager body on a CUDA device),
-all counted by ``models.decode_graph.DecodeGraphs``; and the published
+all counted by ``models.decode_graph.DecodeGraphs``; their prefill twins
+``prefill.graph_captures``, ``prefill.graph_replays`` and
+``prefill.eager_runs``, counted by ``models.decode_graph.PrefillGraphs``
+(``Mamba2LM.prefill``); and the published
 Zamba2 block's (``models.zamba2_published``): ``hybrid.shared_apps``
 (applications of a shared block where its code runs: a graph's replay
 runs none), ``hybrid.prefills`` (prefills), and the bytes of the caches

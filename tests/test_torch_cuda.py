@@ -26,8 +26,11 @@ bf16 operands.  Every ``examples/torch_*.py`` runs on the
 card at a small size (the quickstart's results equal to the CPU's field
 for field, the DS_PGM dead-band aside).  The ssm family's decode step as
 one CUDA graph (``models.decode_graph``) gives the eager body's tokens,
-its logits and caches within bf16 round-off.  The published Zamba2 block
-(zamba2-7b-instruct): flash at head dim 224 with its (224/2)^-1/2 scale
+its logits and caches within bf16 round-off; its prefill as one CUDA graph
+(captured at a layout's second prefill) gives the eager body's logits, SSD
+states and conv histories bit for bit, at mamba2-370m's published widths
+and 4,090 tokens and over a stream of mixed lengths.  The published Zamba2
+block (zamba2-7b-instruct): flash at head dim 224 with its (224/2)^-1/2 scale
 against the plain version (the one-ulp rule) and SDPA, the SSD with 2
 B/C groups against the plain version, and one period of the published
 config (layers 0-6, one shared-block application) served on the card
@@ -1102,7 +1105,11 @@ def test_prefill_span_holds_every_ssd_stage_launch_on_card(card):
     belongs to that prefill's span: each has a launch record (the runtime
     call with the kernel's correlation id; the ctypes-loaded library's
     launches are traced like torch's own), and it lies inside the span,
-    which ends when the launches are enqueued."""
+    which ends when the launches are enqueued.  A layout's first prefill
+    runs the eager body, so each kernel's record is its own launch
+    (``cudaLaunch*`` / ``cuLaunch*``); its third replays the graph its
+    second captured, so each kernel's record is that prefill's graph
+    launch (``cudaGraphLaunch`` / ``cuGraphLaunch``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1112,35 +1119,47 @@ def test_prefill_span_holds_every_ssd_stage_launch_on_card(card):
     cfg = get_config("mamba2-370m").reduced()
     engine = ServeEngine(cfg, device=card,
                          generator=torch.Generator().manual_seed(0))
-    toks = np.random.default_rng(0).integers(0, cfg.vocab, (1, 64))
-    engine.prefill(toks, max_len=66)           # builds and loads the kernels
-    torch.cuda.synchronize(card)
-    tracing.clear()
-    tracing.enable()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            engine.prefill(toks, max_len=66)
-            torch.cuda.synchronize(card)
-    finally:
-        tracing.disable()
-    (span,) = tracing.spans()
-    tracing.clear()
-    assert span.name == "prefill"
-    events = list(prof.profiler.kineto_results.events())
-    # the launch calls of the CUDA runtime (cudaLaunch*) and of its
-    # lower-level API (cuLaunch*): their correlation ids are CUPTI's, a
-    # host operator's id is another count
-    launches = {ev.correlation_id(): ev.start_ns() for ev in events
-                if ev.device_type() == DeviceType.CPU and
-                ev.name().startswith(("cudaLaunch", "cuLaunch"))}
-    stages = [ev for ev in events if ev.device_type() != DeviceType.CPU and
-              any(st in ev.name() for st in SSD_STAGES)]
-    assert len(stages) == len(SSD_STAGES) * cfg.n_layers
-    for ev in stages:
-        launched = launches.get(ev.correlation_id())
-        assert launched is not None, ev.name()
-        assert span.start_ns <= launched <= span.end_ns, ev.name()
+    rng = np.random.default_rng(0)
+    # builds and loads the kernels, on a layout of its own
+    engine.prefill(rng.integers(0, cfg.vocab, (1, 48)), max_len=66)
+    toks = rng.integers(0, cfg.vocab, (1, 64))
+
+    def traced():
+        torch.cuda.synchronize(card)
+        tracing.clear()
+        tracing.enable()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                engine.prefill(toks, max_len=66)
+                torch.cuda.synchronize(card)
+        finally:
+            tracing.disable()
+        (span,) = tracing.spans()
+        tracing.clear()
+        return span, list(prof.profiler.kineto_results.events())
+
+    eager = traced()
+    engine.prefill(toks, max_len=66)           # captures the graph
+    replayed = traced()
+    # the launch calls of the CUDA runtime (cudaLaunch*, cudaGraphLaunch)
+    # and of its lower-level API (cuLaunch*, cuGraphLaunch): their
+    # correlation ids are CUPTI's, a host operator's id is another count
+    for (span, events), kind in ((eager, ("cudaLaunch", "cuLaunch")),
+                                 (replayed, ("cudaGraphLaunch",
+                                             "cuGraphLaunch"))):
+        assert span.name == "prefill"
+        launches = {ev.correlation_id(): ev.start_ns() for ev in events
+                    if ev.device_type() == DeviceType.CPU and
+                    ev.name().startswith(kind)}
+        stages = [ev for ev in events
+                  if ev.device_type() != DeviceType.CPU and
+                  any(st in ev.name() for st in SSD_STAGES)]
+        assert len(stages) == len(SSD_STAGES) * cfg.n_layers
+        for ev in stages:
+            launched = launches.get(ev.correlation_id())
+            assert launched is not None, (kind, ev.name())
+            assert span.start_ns <= launched <= span.end_ns, ev.name()
 
 
 def _graph_model(card, seed=3, n_layers=3):
@@ -1195,8 +1214,10 @@ def test_decode_graph_equals_the_eager_body_on_card(card):
             assert len({lg.data_ptr() for lg, _ in kept}) == len(kept)
             for lg, copy in kept:
                 assert torch.equal(lg, copy)
-    assert tracing.counters() == {"decode.graph_captures": 1,
-                                  "decode.graph_replays": 15}
+    decode = {k: v for k, v in tracing.counters().items()
+              if k.startswith("decode.")}
+    assert decode == {"decode.graph_captures": 1,
+                      "decode.graph_replays": 15}
 
 
 @pytest.mark.cuda
@@ -1275,6 +1296,106 @@ def test_decode_graph_stays_off_with_grad_or_a_dispatch_mode_on_card(card):
         model.decode_step(params, cache, tok)
     assert tr.ops > 100 and tr.flops > 0
     assert tracing.counters() == {"decode.eager_steps": 2}
+
+
+def _prefill_model(card, reduced):
+    """mamba2-370m whole and as published (bf16 compute) with 4,090-token
+    prompts, or its reduced float32 config with [2, 100] prompts; weights
+    drawn on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model, init_params
+    cfg = get_config("mamba2-370m")
+    cfg, shape = (cfg.reduced(), (2, 100)) if reduced else (cfg, (1, 4090))
+    params = init_params(cfg, torch.Generator(card).manual_seed(7), card)
+    return cfg, get_model(cfg), params, shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduced", [False, True],
+                         ids=["published-bf16-4090", "reduced-float32"])
+def test_prefill_graph_equals_the_eager_body_on_card(card, reduced):
+    """Four prefills of other tokens through ``prefill`` (the first runs
+    the eager body, the second captures, the others replay) and through
+    the eager body: logits, ``state`` and ``conv`` bit-equal; each call's
+    outputs are tensors of its own, left as they were by the later
+    replays.  Counters: one eager run, one capture, two replays, no decode
+    counter; the SSD's launch counter rises by one launch a block for
+    each prefill, eager, captured or replayed."""
+    from repro_torch import tracing
+    from repro_torch.kernels import ssd
+    cfg, model, params, shape = _prefill_model(card, reduced)
+    g = torch.Generator(card).manual_seed(5)
+    tracing.reset_counters()
+    kept = []
+    with torch.no_grad():
+        for _ in range(4):
+            batch = {"tokens": torch.randint(0, cfg.vocab, shape,
+                                             device=card, generator=g)}
+            n = ssd.LAUNCHES["ssd_scan"]
+            got, cache = model.prefill(params, batch)
+            assert ssd.LAUNCHES["ssd_scan"] - n == cfg.n_layers
+            want, mine = model._prefill_eager(params, batch)
+            assert torch.equal(got, want)
+            assert set(cache) == set(mine) == {"state", "conv"}
+            for name in mine:
+                assert cache[name].dtype == mine[name].dtype
+                assert torch.equal(cache[name], mine[name]), name
+            kept.append(((got, cache), (want, mine)))
+    assert len({lg.data_ptr() for (lg, _), _ in kept}) == 4
+    for (got, cache), (want, mine) in kept:
+        assert torch.equal(got, want)
+        for name in mine:
+            assert torch.equal(cache[name], mine[name])
+    assert tracing.counters() == {"prefill.eager_runs": 1,
+                                  "prefill.graph_captures": 1,
+                                  "prefill.graph_replays": 2}
+
+
+@pytest.mark.cuda
+def test_prefill_graphs_of_a_mixed_length_stream_on_card(card):
+    """Prompt lengths in rotation, three recurring and two seen once,
+    through ``prefill`` on the card: each equal bit for bit to the eager
+    body; the first two lengths to recur are captured once each and
+    replayed, every other prefill runs the eager body, and no graph is
+    evicted or captured again."""
+    from repro_torch import tracing
+    cfg, model, params, _ = _prefill_model(card, True)
+    g = torch.Generator(card).manual_seed(6)
+    stream = [100, 60, 100, 140, 60, 100, 140, 33, 60, 140, 71, 100, 140]
+    tracing.reset_counters()
+    with torch.no_grad():
+        for s in stream:
+            batch = {"tokens": torch.randint(0, cfg.vocab, (2, s),
+                                             device=card, generator=g)}
+            got, cache = model.prefill(params, batch)
+            want, mine = model._prefill_eager(params, batch)
+            assert torch.equal(got, want), s
+            for name in mine:
+                assert torch.equal(cache[name], mine[name]), (s, name)
+    assert tracing.counters() == {"prefill.eager_runs": 8,
+                                  "prefill.graph_captures": 2,
+                                  "prefill.graph_replays": 3}
+    assert sorted(key[2][1][1] for key in model._prefill_graphs._graphs) \
+        == [60, 100]
+
+
+@pytest.mark.cuda
+def test_prefill_graph_stays_off_with_grad_or_a_dispatch_mode_on_card(card):
+    """Autograd on, or a Python dispatch mode active (the dry run's cost
+    trace), runs the eager prefill: counted as eager runs on the card, the
+    cost trace sees every operation, and no graph is kept."""
+    from repro_torch import tracing
+    from repro_torch.launch.cost import CostTrace
+    cfg, model, params, shape = _prefill_model(card, True)
+    batch = {"tokens": torch.zeros(shape, dtype=torch.int64, device=card)}
+    tracing.reset_counters()
+    want, _ = model.prefill(params, batch)
+    with torch.no_grad(), CostTrace() as tr:
+        got, _ = model.prefill(params, batch)
+    assert tr.ops > 100 and tr.flops > 0
+    assert torch.equal(got, want)
+    assert tracing.counters() == {"prefill.eager_runs": 2}
+    assert not model._prefill_graphs._graphs
 
 
 def _one_ulp(got, want):

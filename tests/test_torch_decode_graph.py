@@ -1,8 +1,12 @@
-"""The decode step's CUDA graph off the card (``models.decode_graph``): the
-process-wide counters of ``repro_torch.tracing``; ``Mamba2LM.decode_step``
-on the CPU runs its eager body bit for bit and counts no capture, replay
-or eager step on the card; the meta device's dry run of decode still
-traces every operation.  The published Zamba2 block's graph reads its K/V
+"""The decode step's and the prefill's CUDA graphs off the card
+(``models.decode_graph``): the process-wide counters of
+``repro_torch.tracing``; ``Mamba2LM.decode_step`` and ``Mamba2LM.prefill``
+on the CPU run their eager bodies bit for bit and count no capture, replay
+or eager run on the card; the meta device's dry run of decode and of the
+prefill still traces every operation; with the CUDA parts stood in for on
+the CPU, a mixed stream of prompt lengths captures each of the first two
+lengths that recur once and never evicts them, and decode keeps its rule.
+The published Zamba2 block's graph reads its K/V
 length from a 0-d device tensor: the decode attention with such a length
 is the int-length path bit for bit, the rotary frequencies kept on the
 device are ``rope_freqs``, and its ``decode_step`` gives the same logits
@@ -87,6 +91,151 @@ def test_cpu_decode_step_is_the_eager_body_and_counts_nothing(grad):
     assert not model._graphs._graphs
 
 
+@pytest.mark.parametrize("grad", [False, True])
+def test_cpu_prefill_is_the_eager_body_and_counts_nothing(grad):
+    """``prefill`` and its eager body on the same tokens: equal logits,
+    SSD states and conv histories, bit for bit, with autograd on or off
+    (neither records a graph of autograd); a second prefill returns
+    tensors of its own; no counter moves on the CPU and no graph is
+    kept."""
+    cfg, params = _mamba()
+    model = get_model(cfg)
+    batch = {"tokens": torch.as_tensor(
+        np.random.default_rng(1).integers(0, cfg.vocab, (2, 40)))}
+    with torch.set_grad_enabled(grad):
+        got, cache = model.prefill(params, batch)
+        want, mine = model._prefill_eager(params, batch)
+        again, other = model.prefill(params, batch)
+    assert torch.equal(got, want) and not got.requires_grad
+    assert set(cache) == set(mine) == {"state", "conv"}
+    for name in cache:
+        assert cache[name].dtype == mine[name].dtype
+        assert torch.equal(cache[name], mine[name])
+        assert torch.equal(other[name], mine[name])
+        assert other[name].data_ptr() != cache[name].data_ptr()
+    assert again.data_ptr() != got.data_ptr()
+    assert tracing.counters() == {}
+    assert not model._prefill_graphs._graphs
+
+
+class _StandInGraph:
+    """A CUDA graph's stand-in on the CPU: a replay runs the body on the
+    graph's static inputs and writes its results into the static
+    outputs, as a replay of the captured kernels would."""
+
+    def __init__(self, g, run):
+        self.g, self.run = g, run
+
+    def replay(self):
+        from torch.utils._pytree import tree_leaves
+        for static, new in zip(tree_leaves(self.g.outputs),
+                               tree_leaves(self.run(self.g.inputs))):
+            static.copy_(new)
+
+
+@pytest.fixture
+def cpu_graphs(monkeypatch):
+    """``models.decode_graph`` with its CUDA parts stood in for on the
+    CPU: any input with autograd off takes a graph keyed by its names,
+    shapes and dtypes, and a capture builds static buffers around a
+    :class:`_StandInGraph`.  The rule of when to capture, evict or run
+    eagerly is the module's own."""
+    from repro_torch.models import decode_graph as dg
+
+    def layout(inputs):
+        if torch.is_grad_enabled():
+            return None
+        return tuple((n, t.shape, t.dtype) for n, t in inputs.items())
+
+    def capture(self, key, params, leaves, inputs, run):
+        g = dg._Graph()
+        g.params, g.leaves, g.launches = params, leaves, []
+        g.inputs = {n: torch.zeros_like(t) for n, t in inputs.items()}
+        g.outputs = run(g.inputs)
+        g.graph = _StandInGraph(g, run)
+        self._graphs[key] = g
+        return g
+
+    monkeypatch.setattr(dg, "_layout", layout)
+    monkeypatch.setattr(dg.StepGraphs, "_capture", capture)
+    return dg
+
+
+def test_prefill_graphs_capture_recurring_lengths_and_never_thrash(
+        cpu_graphs):
+    """A stream of prompt lengths in rotation, three of them recurring
+    and some seen once, through ``prefill``: a length is captured at its
+    second prefill, into a free place only, so the first two lengths to
+    recur keep the two graphs, the third runs the eager body at every
+    prefill, and nothing is captured twice; each prefill's logits, state
+    and conv equal the eager body's bit for bit, in tensors of its own.
+    A new ``params`` object's recurring length takes the place of the
+    least recently used graph held for the old one."""
+    cfg, params = _mamba()
+    model = get_model(cfg)
+    rng = np.random.default_rng(4)
+    stream = [40, 24, 40, 56, 24, 40, 56, 33, 24, 56, 71, 40, 56, 24]
+    kept = []
+    with torch.no_grad():
+        for s in stream:
+            batch = {"tokens": torch.as_tensor(
+                rng.integers(0, cfg.vocab, (1, s)))}
+            got, cache = model.prefill(params, batch)
+            want, mine = model._prefill_eager(params, batch)
+            assert torch.equal(got, want)
+            for name in mine:
+                assert torch.equal(cache[name], mine[name])
+            kept.append(((got, cache), (want, mine)))
+    for (got, cache), (want, mine) in kept:          # untouched by replays
+        assert torch.equal(got, want)
+        for name in mine:
+            assert torch.equal(cache[name], mine[name])
+    graphs = model._prefill_graphs._graphs
+    assert sorted(key[0][1][1] for key in graphs) == [24, 40]
+    assert tracing.counters() == {"prefill.graph_captures": 2,
+                                  "prefill.graph_replays": 4}
+    _, other = _mamba(seed=5)
+    batch = {"tokens": torch.zeros((1, 56), dtype=torch.int64)}
+    with torch.no_grad():
+        got, _ = model.prefill(other, batch)
+        assert torch.equal(got, model._prefill_eager(other, batch)[0])
+    assert sorted(key[0][1][1] for key in graphs) == [24, 56]
+    assert tracing.counters()["prefill.graph_captures"] == 3
+
+
+def test_decode_graphs_capture_at_once_and_evict_the_least_recent(
+        cpu_graphs):
+    """Decode steps keep their rule: a layout is captured at its first
+    step, and a third layout evicts the least recently used graph."""
+    from repro_torch.models.decode_graph import DecodeGraphs
+    graphs = DecodeGraphs()
+
+    def body(params, cache, tokens):
+        cache["h"].add_(tokens)
+        return cache["h"] * params["w"], cache
+
+    params = {"w": torch.tensor(2.0)}
+    with torch.no_grad():
+        for b in (1, 1, 2, 3, 1):
+            cache = {"h": torch.ones(b)}
+            got, out = graphs(body, params, cache, torch.ones(b))
+            assert out is cache
+            assert torch.equal(cache["h"], torch.full((b,), 2.))
+            assert torch.equal(got, torch.full((b,), 4.))
+    assert [key[1][1][0] for key in graphs._graphs] == [3, 1]
+    assert tracing.counters() == {"decode.graph_captures": 4,
+                                  "decode.graph_replays": 1}
+
+
+def test_every_kernel_launch_counter_is_registered():
+    """The kernels' ``LAUNCHES`` are the counters a graph's replay adds
+    to (``kernels.LAUNCH_COUNTERS``)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import bloom, flash_attention, ssd, subsetdp
+    for mod in (bloom, flash_attention, ssd, subsetdp):
+        assert any(c is mod.LAUNCHES for c in kernels.LAUNCH_COUNTERS)
+
+
 def test_serve_engine_decode_on_cpu_counts_nothing():
     cfg, params = _mamba()
     eng = ServeEngine(cfg, params=params, device="cpu")
@@ -111,6 +260,22 @@ def test_meta_dry_run_of_decode_traces_every_operation():
     assert tracing.counters() == {}
 
 
+
+def test_meta_dry_run_of_prefill_traces_every_operation():
+    """The dry run's prefill on the meta device runs the eager body under
+    its cost trace: the operations, FLOPs and SSD calls of the eager body
+    traced on its own, and no graph."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cost import CostTrace
+    cfg = get_config("mamba2-370m").reduced()
+    shape = ShapeConfig("small", 64, 2, "prefill")
+    step, args = dryrun.build_step(cfg, shape, None, torch.device("meta"))
+    got = dryrun.run_traced(step, args)
+    with torch.no_grad(), CostTrace() as tr:
+        get_model(cfg)._prefill_eager(*args)
+    assert got["ops"] == tr.ops > 0 and got["flops"] == tr.flops > 0
+    assert got["kernel_calls"] == {"ssd_scan": cfg.n_layers}
+    assert tracing.counters() == {}
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hq,hkv,d,scale", [(4, 2, 64, 0.0),
