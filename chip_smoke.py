@@ -92,8 +92,9 @@ Phases, each failing the run on any mismatch:
      (flash 24), seamless-m4t-medium ``--prefix-len 256`` (flash 36: 12
      encoder, 12 decoder self, 12 cross), zamba2-7b ``--prefix-len
      512`` (flash 13, one per shared application, SSD 81) and
-     zamba2-7b-instruct ``--prefix-len 4090`` (flash 13, SSD 81), each
-     with its prefill seconds, decode tokens per second (the tokens the launcher
+     zamba2-7b-instruct ``--prefix-len 4090`` (flash 13, SSD 81), every
+     SSD call on the tensor cores (``ssd.MMA_LAUNCHES`` equal to the SSD
+     launches: bf16 compute), each with its prefill seconds, decode tokens per second (the tokens the launcher
      reports decoded), weight-draw seconds and peak device memory; (d3)
      each model at its published widths in float32 with seeded weights:
      prefill and greedy decode on the card (kernels) against the CPU
@@ -106,7 +107,10 @@ Phases, each failing the run on any mismatch:
      (d4) the two kernels' times at every main-path shape beside their
      plain versions', ``scaled_dot_product_attention``'s (flash) and
      their bounds, each flash shape first held against the plain version
-     in bf16 as in (d1).  ``python3 chip_smoke.py --phase 8`` runs
+     in bf16 as in (d1), and the SSD's five stages timed apart at its
+     three main-path shapes (mamba2-370m at 4,090 and 32,768 tokens,
+     zamba2-7b-instruct at 4,090) beside what the states and output
+     stages took on the CUDA cores.  ``python3 chip_smoke.py --phase 8`` runs
      phases 1 and 8 alone and prints their kernel records, no result;
   9. the training path, which reaches no kernel (plain, differentiable
      torch, as the JAX package's loss): (g1) ``python -m
@@ -217,9 +221,8 @@ ROOT = Path(__file__).resolve().parent
 
 #: H100 SXM peak (NVIDIA data sheet): HBM3
 PEAK_BYTES_PER_S = 3.35e12
-#: dense bf16 on the tensor cores; float32 outside them
+#: dense bf16 on the tensor cores
 PEAK_BF16_FLOPS = 989e12
-PEAK_FP32_FLOPS = 67e12
 #: the paper-scale setup (benchmarks/paper_figs.py _scale(full=True))
 PAPER = dict(cache_size=10_000, update_interval=1_000, bpe=14.0,
              est_interval=50, miss_penalty=100.0, seed=0)
@@ -1143,6 +1146,15 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 #: Rounding p to bf16 once makes about a third of them differ.
 FLASH_BF16_SHARE = 0.01
 SSD_TOL = {"float32": 2e-3, "bfloat16": 3e-2}
+#: the SSD's three main-path shapes, timed stage by stage: (name, b, s, h,
+#: p, n, chunk, groups, device ms a call of the states and output stages
+#: on the CUDA cores, profiled on an NVIDIA H100 80GB HBM3 at 700 W); the
+#: tensor-core stages are to take at most 1 / SSD_STAGE_GAIN of it
+SSD_STAGE_SHAPES = (
+    ("mamba2-370m-4090", 1, 4090, 32, 64, 128, 256, 1, 0.5415),
+    ("zamba2-7b-instruct-4090", 1, 4090, 112, 64, 64, 256, 2, 1.6395),
+    ("mamba2-370m-32768", 1, 32768, 32, 64, 128, 256, 1, 4.3440))
+SSD_STAGE_GAIN = 4
 #: the full-width serve drives at the published configs: (arch, launcher
 #: flags, kernel launches a prefill).  Prefix lengths are multiples of 16
 #: (granite's ``moe_groups``); zamba2-7b's requests stay few because each
@@ -1368,6 +1380,7 @@ def phase_lm_serve(card: str) -> dict:
             rc = serve_main(argv)
         secs = time.perf_counter() - t0
         counts = {**fa.LAUNCHES, **ssd.LAUNCHES}
+        mma = ssd.MMA_LAUNCHES["ssd_scan_mma"]
         print(buf.getvalue(), end="")
         check(rc == 0, f"serve {arch} exited {rc}")
         st = _serve_line(buf.getvalue())
@@ -1381,9 +1394,14 @@ def phase_lm_serve(card: str) -> dict:
               f"{tokens / decode_s:.2f} tok/s; peak device memory "
               f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; kernel "
               f"launches {json.dumps(counts)} = {json.dumps(per_prefill)} "
-              f"x {n} prefills; {secs:.3f} s in all ({card})")
+              f"x {n} prefills, {mma} SSD calls on the tensor cores "
+              f"(ssd_scan_mma); {secs:.3f} s in all ({card})")
         check(n > 0 and counts == want,
               f"{arch}: kernel launches {counts}, expected {want}")
+        # bf16 compute: every SSD call runs the tensor-core stages
+        check(mma == counts["ssd_scan"],
+              f"{arch}: {mma} SSD calls on the tensor cores of "
+              f"{counts['ssd_scan']}")
         out[arch] = (n, counts, st["params"])
         requests = int(flags[flags.index("--requests") + 1])
         saved = (st["prefill_s"] + decode_s) * (SERVE_CUT[arch] / requests
@@ -1536,7 +1554,7 @@ def _lm_compare(arch: str, dev, card: str) -> None:
 def _kernel_name(key: str) -> str:
     """A profiler key's kernel name, without namespace and signature."""
     import re
-    found = re.search(r"(\w+_kernel)\b", key)
+    found = re.search(r"(\w+_kernel(?:_mma)?)\b", key)
     return found.group(1) if found else key[:40]
 
 
@@ -1604,15 +1622,13 @@ def _time_ssd(name, b, s, h, p, n, chunk, dev, card, groups=1) -> dict:
     stages = kernel_shares(kern, 20)
     plain_ms = device_ms(lambda: ssd.ssd_scan_ref(x, dt, A, B, C,
                                                   chunk=chunk), 3)
-    tc_flops, flops, nbytes = ssd_work(b, s, h, p, n, chunk, 2, groups)
-    # C.B^T at the bf16 tensor-core peak, the rest at the float32 one: in
-    # float32-peak-equivalent operations
-    eq = flops + tc_flops * PEAK_FP32_FLOPS / PEAK_BF16_FLOPS
-    bound_ms, by = bound(eq, nbytes, PEAK_FP32_FLOPS)
+    cb_flops, flops, nbytes = ssd_work(b, s, h, p, n, chunk, 2, groups)
+    # every product has bf16 operands and runs on the tensor cores
+    bound_ms, by = bound(cb_flops + flops, nbytes, PEAK_BF16_FLOPS)
     print(f"[times] ssd_scan {name} bf16 [{b}, {s}, {h}, {p}] n={n} "
           f"groups={groups} chunk={chunk}: device time kernel {ms:.4f} ms "
           f"(five kernels), plain {plain_ms:.4f} ms; bound {bound_ms:.6f} ms ({by}; "
-          f"{tc_flops} bf16 tensor-core flops, {flops} float32 flops, "
+          f"{cb_flops} flops of C.B^T, {flops} of the other products, "
           f"{nbytes} bytes), {bound_ms / ms:.1%} of the bound reached "
           f"({card})")
     print(f"[times] ssd_scan {name} stages (device ms a launch, profiler "
@@ -1620,6 +1636,35 @@ def _time_ssd(name, b, s, h, p, n, chunk, dev, card, groups=1) -> dict:
                                   for k, v in stages.items()))
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": by, "library_ms": None}
+
+
+def _time_ssd_stages(name, b, s, h, p, n, chunk, groups, before_ms, dev,
+                     card) -> None:
+    """The five stages of one bf16 SSD call at a main-path shape, timed
+    apart (a profiler trace, the log only), beside the call's bound (every
+    product at the bf16 tensor-core peak, as the benchmark's
+    ``ssd_roofline`` counts it) and ``before_ms``, what the states and
+    output stages took on the CUDA cores."""
+    import torch
+    from repro_torch.kernels import ssd
+    from repro_torch.kernels.ssd import ssd_work
+    x, dt, A, B, C = _ssd_inputs(b, s, h, p, n, torch.bfloat16, dev, s,
+                                 groups)
+    kern = lambda: ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)  # noqa: E731
+    ms = device_ms(kern, 20)
+    stages = {_kernel_name(k): v for k, v in kernel_shares(kern, 20).items()}
+    cb_flops, flops, nbytes = ssd_work(b, s, h, p, n, chunk, 2, groups)
+    bound_ms, by = bound(cb_flops + flops, nbytes, PEAK_BF16_FLOPS)
+    two = sum(v for k, v in stages.items()
+              if k.startswith(("ssd_states_kernel", "ssd_out_kernel")))
+    print(f"[times] ssd_scan stages {name} bf16 [{b}, {s}, {h}, {p}] n={n} "
+          f"groups={groups} chunk={chunk} (device ms a launch, profiler "
+          f"trace): " + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+          + f"; the call {ms:.4f} ms (events), bound {bound_ms:.6f} ms ({by}); "
+          f"states + output {two:.4f} ms against {before_ms:.4f} on the CUDA "
+          f"cores ({before_ms / two:.2f}x less, {SSD_STAGE_GAIN}x asked: "
+          f"{'met' if before_ms >= SSD_STAGE_GAIN * two else 'missed'}) "
+          f"({card})")
 
 
 def phase_lm_times(dev, serve: dict, errs: dict, card: str):
@@ -1651,6 +1696,8 @@ def phase_lm_times(dev, serve: dict, errs: dict, card: str):
                                       f"groups={groups} chunk={chunk}",
                             "launches": per * serve[path][0], **t})
     _time_ssd("long4096", *SSD_SHAPES[1][1:], dev, card)
+    for stage_shape in SSD_STAGE_SHAPES:
+        _time_ssd_stages(*stage_shape, dev, card)
     records = []
     for name, kernel, entries, source, replaces in (
             ("flash_attention.flash_attention", "flash_attention", flash,

@@ -27,16 +27,29 @@
 //      products of bf16 values are exact in float32, only the order of
 //      the sums changes), float32 on the CUDA cores;
 //   3. ssd_states_kernel: the chunk states S_c [P, N], grid (b, chunk,
-//      N-tile) x h;
+//      N-tile) x h (bf16: ssd_states_kernel_mma, grid (b, chunk) x h);
 //   4. ssd_carry_kernel: for each (b, h) and float4 of the state, walk the
 //      chunks in order: state_in[c] = carry (written over S_c), carry =
 //      carry exp(cum_L[c]) + S_c; the last carry is the final state;
 //   5. ssd_out_kernel: y for each (b, chunk, 64-row tile) x h, intra and
-//      inter terms.
-// Stages 3 and 5 are float32 products on the CUDA cores, register-tiled:
-// each thread owns a 4 x 4 output tile and reads two float4 from shared
-// memory per 16 multiply-adds (the weights exp(.) dt and the states are
-// float32: a tensor-core product would have to split them in bf16 parts).
+//      inter terms (bf16: ssd_out_kernel_mma, grid (b, chunk) x h).
+// float32 inputs: stages 3 and 5 are float32 products on the CUDA cores,
+// register-tiled: each thread owns a 4 x 4 output tile and reads two float4
+// from shared memory per 16 multiply-adds (no TF32).
+// bf16 inputs: stages 3 and 5 run on the tensor cores (mma.sync m16n8k16,
+// float32 accumulate).  Each of their products has one operand exact in
+// bf16 (x, B or C) and one float32 operand: the intra weights W_ij = CB_ij
+// exp(cum_i - cum_j) dt_j, the entering state S_in (the carry's output)
+// and w_j x_j with w_j = exp(cum_L - cum_j) dt_j.  The float32 operand is
+// split once into hi = bf16(v) and lo = bf16(v - hi); v - hi is exact in
+// float32, so hi + lo carries v to about 2^-16 relative, each bf16 x bf16
+// product is exact in float32 and the sum stays float32: two products (hi
+// and lo) into one accumulator give the float32 result to within the order
+// of the sums, as flash_wgmma.cu splits p for P.V.  W and w x are formed in
+// float32 as the CUDA-core stages form them, in registers, in the A
+// fragment's layout; S_in is split into shared memory once a block; x and
+// B are staged as they lie in memory (cp.async) and read transposed by
+// ldmatrix.
 // exp(cum_i - cum_j) is taken only for j <= i: above the diagonal it
 // overflows, and inf * 0 would be NaN.  Rows past the sequence read as
 // zeros (dt = 0 keeps the state, as ssd_chunked's zero padding gives) and
@@ -47,13 +60,23 @@
 // take the groups as a template flag GR: with GR false (G = 1) every index
 // folds to the one-group code.
 //
-// What bounds it on an H100: the operations (at mamba2-370m, [1, 4096, 32,
-// 64], N 128, L 256: 0.13 GFLOP of C.B^T on the tensor cores and 6.4 GFLOP
-// of float32 on the CUDA cores), and at short prefills the five launches.
+// What bounds it on an H100 (80GB HBM3, 700 W): at mamba2-370m, [1, 4090,
+// 32, 64], N 128, L 256, the products are 0.13 GFLOP of C.B^T and 6.4 GFLOP
+// in stages 3 and 5.  On the CUDA cores (float32; bf16 inputs too, before
+// the split) those took 0.54 ms of a 0.59 ms call.  In bf16 the split
+// doubles them to about 13 GFLOP on the tensor cores (13 us at the bf16
+// peak) and the call takes 0.15 ms: the output stage 0.076, bound by
+// forming W in float32 (its exp, CB's loads and the diagonal's selects, one
+// a kept pair and head; without its products the stage is 5% faster) and,
+// for 20 us of it, by staging x and S_in (bytes); the states stage 0.031
+// (its bytes alone 0.010), the C.B^T stage 0.017.  At 32,768 tokens the
+// carry's walk over 128 chunks, 0.43 ms of 1.37, comes next.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -63,17 +86,10 @@ constexpr int PAD = 4;    // floats of row padding where a tile is written
                           // transposed (4-way instead of 32-way conflicts)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // acc[r][c] += a[r] * b[c] over a 4 x 4 tile (a, b float4 from shared)
 __device__ __forceinline__ void mac4x4(float (&acc)[4][4], const float4 a,
@@ -144,6 +160,72 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8 x 8 bf16 matrices from shared memory, lane l giving the address of
+// row l % 8 of matrix l / 8; TRANS hands each thread a column pair
+template <bool TRANS>
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  if constexpr (TRANS)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_u32(p)) : "memory");
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_u32(p)) : "memory");
+}
+
+// BYTES (16 or 8) from global to shared memory, zeros where !ok (src is
+// then not read)
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool ok) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(ok ? 8 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (v0, v1) = hi + lo: hi = bf16(v), lo = bf16(v - hi), packed in pairs
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(v0 - __low2float(h), v1 - __high2float(h)));
+}
+
+// a bf16 pair times (w0, w1) in float32, split
+__device__ __forceinline__ void scale_split(uint32_t xv, float w0, float w1,
+                                            uint32_t& hi, uint32_t& lo) {
+  const float2 v = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&xv));
+  split2(v.x * w0, v.y * w1, hi, lo);
+}
+
+// d += (hi + lo) . b
+__device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&hi)[4],
+                                          const uint32_t (&lo)[4], uint32_t b0,
+                                          uint32_t b1) {
+  mma_bf16(d, hi, b0, b1);
+  mma_bf16(d, lo, b0, b1);
 }
 
 template <typename T, bool GR>
@@ -293,6 +375,95 @@ ssd_states_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
+// 3, bf16: S_c[p, n] = sum_j (w_j x_j[p]) B_j[n] on the tensor cores, one
+// block a (b, chunk) x h.  A = (w o x)^T (float32, split), B = B's rows.
+// Warp k takes 16 rows of p and 128 columns of n (8192 / P >= N columns in
+// all); the chunk's rows come in stages of JK, double-buffered.
+template <int P, bool GR>
+__global__ void __launch_bounds__(128)
+ssd_states_kernel_mma(const __nv_bfloat16* __restrict__ x,
+                      const float* __restrict__ dt,
+                      const __nv_bfloat16* __restrict__ Bm,
+                      const float* __restrict__ cum, float* __restrict__ st,
+                      int S, int H, int N, int L, int nc, int G) {
+  constexpr int WM = P / 16, NW = 128, NB = 4 / WM * NW;
+  constexpr int JK = P == 16 ? 16 : 32;  // rows a stage (within 48 KB of shared)
+  constexpr int XS = P + 8, BS = NB + 8;  // conflict-free ldmatrix rows
+  __shared__ __align__(16) __nv_bfloat16 xs[2][JK][XS], bs[2][JK][BS];
+  __shared__ float w_s[256];
+  const int h = blockIdx.y, c = blockIdx.x % nc, b = blockIdx.x / nc;
+  const int s0 = c * L, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int pw = (warp % WM) * 16, nw = (warp / WM) * NW;  // the warp's tile
+  const long long row = ((long long)b * H + h) * nc + c;
+  const float* cr = cum + row * L;
+  const int jn = min(L, S - s0);  // real rows of this chunk
+  const float cum_end = cr[L - 1];
+  for (int j = tid; j < 256; j += 128)
+    w_s[j] = j < jn ? expf(cum_end - cr[j]) * dt[((long long)b * S + s0 + j) * H + h]
+                    : 0.f;
+  const __nv_bfloat16* xb = x + (((long long)b * S + s0) * H + h) * P;  // + j H P
+  const long long GN = GR ? (long long)G * N : N;                      // B's row
+  const __nv_bfloat16* bb =
+      Bm + ((long long)b * S + s0) * GN + (GR ? (long long)(h / (H / G)) * N : 0);
+  const int nq = (N + 15) / 16 * 4;  // 4-column pieces of B's row, zeros past N
+  auto stage = [&](int buf, int j0) {
+    for (int e = tid; e < JK * P / 8; e += 128) {
+      const int j = e / (P / 8), q = 8 * (e % (P / 8)), jj = j0 + j;
+      cp_async<16>(&xs[buf][j][q], jj < jn ? xb + (long long)jj * H * P + q : xb,
+                   jj < jn);
+    }
+    for (int e = tid; e < JK * nq; e += 128) {
+      const int j = e / nq, n = 4 * (e % nq), jj = j0 + j;
+      const bool ok = jj < jn && n < N;
+      cp_async<8>(&bs[buf][j][n], ok ? bb + (long long)jj * GN + n : bb, ok);
+    }
+    cp_commit();
+  };
+  float acc[NW / 8][4] = {};
+  stage(0, 0);
+  for (int j0 = 0, buf = 0; j0 < jn; j0 += JK, buf ^= 1) {
+    if (j0 + JK < jn) {
+      stage(buf ^ 1, j0 + JK);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();  // the stage has landed (and w_s is written)
+#pragma unroll
+    for (int kk = 0; kk < JK; kk += 16) {
+      // A[p][j] = x[j][p] w_j: x^T's fragment, then scaled and split
+      uint32_t a[4], hi[4], lo[4];
+      ldsm4<true>(a, &xs[buf][kk + lane % 8 + 8 * (lane / 16)][pw + 8 * (lane / 8 % 2)]);
+      const int j = j0 + kk + 2 * t;
+      scale_split(a[0], w_s[j], w_s[j + 1], hi[0], lo[0]);
+      scale_split(a[1], w_s[j], w_s[j + 1], hi[1], lo[1]);
+      scale_split(a[2], w_s[j + 8], w_s[j + 9], hi[2], lo[2]);
+      scale_split(a[3], w_s[j + 8], w_s[j + 9], hi[3], lo[3]);
+#pragma unroll
+      for (int np = 0; np < NW / 16; ++np) {  // two 8-column tiles of n
+        if (nw + 16 * np >= N) continue;
+        uint32_t bq[4];
+        ldsm4<true>(bq, &bs[buf][kk + lane % 8 + 8 * (lane / 8 % 2)]
+                           [nw + 16 * np + 8 * (lane / 16)]);
+        mma_split(acc[2 * np], hi, lo, bq[0], bq[1]);
+        mma_split(acc[2 * np + 1], hi, lo, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();  // consumed before the next stage overwrites it
+  }
+  float* out = st + row * P * N;
+#pragma unroll
+  for (int nt = 0; nt < NW / 8; ++nt) {
+    const int n = nw + 8 * nt + 2 * t;
+    if (n >= N) continue;
+    *reinterpret_cast<float2*>(out + (long long)(pw + g) * N + n) =
+        make_float2(acc[nt][0], acc[nt][1]);
+    *reinterpret_cast<float2*>(out + (long long)(pw + g + 8) * N + n) =
+        make_float2(acc[nt][2], acc[nt][3]);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // 4. carry across chunks, in place: st[c] becomes the state entering c
 // ---------------------------------------------------------------------------
@@ -407,6 +578,171 @@ ssd_out_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
+// 5, bf16: y for one (b, chunk) x h on the tensor cores.  The chunk's x
+// rows (as they lie in memory) and S_in (split into s_hi + s_lo) are staged
+// once into shared memory, behind one barrier; then each warp computes its
+// 16-row slabs on its own: slab w and slab 15 - w of warp w, whose key
+// counts add up alike.  Inter: A = C's rows, B = S_in.  Intra: A = W
+// (float32, formed and split in registers), B = x's rows.  C's and CB's
+// values are loaded a step ahead.
+template <int P>
+struct OutMma {
+  static constexpr int SS = 8192 / P + 8;  // s_hi / s_lo row: the widest state
+  static constexpr int XS = P + 8;         // x row (conflict-free ldmatrix)
+  static constexpr int SMEM = 2 * P * SS * 2 + 256 * XS * 2 + 2 * 256 * 4;
+};
+
+template <int P, bool GR>
+__global__ void __launch_bounds__(256, 2)
+ssd_out_kernel_mma(const __nv_bfloat16* __restrict__ x,
+                   const float* __restrict__ dt,
+                   const __nv_bfloat16* __restrict__ Cm,
+                   const float* __restrict__ cum, const float* __restrict__ cb,
+                   const float* __restrict__ st, __nv_bfloat16* __restrict__ y,
+                   int S, int H, int N, int L, int nc, int G) {
+  constexpr int SS = OutMma<P>::SS, XS = OutMma<P>::XS, NP = P / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto s_hi = reinterpret_cast<__nv_bfloat16(*)[SS]>(smem);
+  auto s_lo = s_hi + P;
+  auto xs = reinterpret_cast<__nv_bfloat16(*)[XS]>(s_lo + P);
+  float* cum_s = reinterpret_cast<float*>(xs + 256);
+  float* dt_s = cum_s + 256;
+  const int h = blockIdx.y, c = blockIdx.x % nc, b = blockIdx.x / nc;
+  const int s0 = c * L, jn = min(L, S - s0);  // real rows of this chunk
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const long long row = ((long long)b * H + h) * nc + c;
+  const float* state = st + row * P * N;
+  const int gr = GR ? h / (H / G) : 0;
+  const long long GN = GR ? (long long)G * N : N;  // C's row
+  const float* cbc =
+      cb + (GR ? (long long)(b * G + gr) * nc + c : (long long)blockIdx.x) * L * L;
+  const __nv_bfloat16* cm =
+      Cm + ((long long)b * S + s0) * GN + (GR ? (long long)gr * N : 0);
+  const __nv_bfloat16* xb = x + (((long long)b * S + s0) * H + h) * P;  // + j H P
+  const int slabs = (jn + 15) / 16;
+  // x's rows, zeros to the last slab's end
+  for (int e = tid; e < 16 * slabs * (P / 8); e += 256) {
+    const int j = e / (P / 8), q = 8 * (e % (P / 8));
+    cp_async<16>(&xs[j][q], j < jn ? xb + (long long)j * H * P + q : xb, j < jn);
+  }
+  cp_commit();
+  for (int j = tid; j < jn; j += 256) {
+    cum_s[j] = cum[row * L + j];
+    dt_s[j] = dt[((long long)b * S + s0 + j) * H + h];
+  }
+  // S_in split, s_hi + s_lo; zeros for n from N to a multiple of 16
+  const int NK = (N + 15) / 16 * 16;
+#pragma unroll 4
+  for (int e = tid; e < P * NK / 4; e += 256) {
+    const int p = e / (NK / 4), n = 4 * (e % (NK / 4));
+    const float4 v = n < N ? f4(state + (long long)p * N + n)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+    uint2 hi, lo;
+    split2(v.x, v.y, hi.x, lo.x);
+    split2(v.z, v.w, hi.y, lo.y);
+    *reinterpret_cast<uint2*>(&s_hi[p][n]) = hi;
+    *reinterpret_cast<uint2*>(&s_lo[p][n]) = lo;
+  }
+  cp_wait<0>();
+  __syncthreads();
+
+  // C's pair (n, n + 1) of chunk row i as one word, zeros past the rows and N
+  auto c2 = [&](int i, int n) -> uint32_t {
+    return i < jn && n < N ? *reinterpret_cast<const uint32_t*>(cm + (long long)i * GN + n)
+                           : 0u;
+  };
+  // W_ij = CB_ij exp(cum_i - cum_j) dt_j is kept for j <= i < jn only (the
+  // exponential above the diagonal overflows; inf * 0 = NaN)
+  auto kept = [&](int i, int j) { return i < jn && j <= i; };
+  for (int half = 0; half < 2; ++half) {
+    const int slab = half ? 15 - warp : warp;
+    if (slab >= slabs) continue;
+    const int ia = 16 * slab + g, ib = ia + 8;  // the thread's chunk rows
+    float inter[NP][4] = {}, intra[NP][4] = {};
+    uint32_t an[4] = {c2(ia, 2 * t), c2(ib, 2 * t), c2(ia, 2 * t + 8), c2(ib, 2 * t + 8)};
+    for (int n0 = 0; n0 < NK; n0 += 16) {  // inter: C_i . S_in
+      const uint32_t a[4] = {an[0], an[1], an[2], an[3]};
+      const int n = n0 + 16 + 2 * t;  // the next step's (zeros past N)
+      an[0] = c2(ia, n), an[1] = c2(ib, n), an[2] = c2(ia, n + 8), an[3] = c2(ib, n + 8);
+#pragma unroll
+      for (int pp = 0; pp < NP / 2; ++pp) {
+        uint32_t bh[4], bl[4];
+        const int pr = 16 * pp + lane % 8 + 8 * (lane / 16), nc8 = n0 + 8 * (lane / 8 % 2);
+        ldsm4<false>(bh, &s_hi[pr][nc8]);
+        ldsm4<false>(bl, &s_lo[pr][nc8]);
+        mma_bf16(inter[2 * pp], a, bh[0], bh[1]);
+        mma_bf16(inter[2 * pp], a, bl[0], bl[1]);
+        mma_bf16(inter[2 * pp + 1], a, bh[2], bh[3]);
+        mma_bf16(inter[2 * pp + 1], a, bl[2], bl[3]);
+      }
+    }
+    // intra: sum over j <= i of W_ij x_j, k-steps of 16 keys up to the slab's
+    // own; e's bits pick the fragment's element: key + 1, row + 8, key + 8
+    auto load_cb = [&](int k, float (&v)[8]) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int i = e & 2 ? ib : ia, j = 16 * k + 2 * t + (e & 1) + (e & 4 ? 8 : 0);
+        v[e] = kept(i, j) ? cbc[(long long)i * L + j] : 0.f;
+      }
+    };
+    float cbn[8];
+    load_cb(0, cbn);
+    for (int k = 0; k <= slab; ++k) {
+      float w[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) w[e] = cbn[e];
+      load_cb(k + 1, cbn);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int i = e & 2 ? ib : ia, j = 16 * k + 2 * t + (e & 1) + (e & 4 ? 8 : 0);
+        w[e] = kept(i, j) ? w[e] * expf(cum_s[i] - cum_s[j]) * dt_s[j] : 0.f;
+      }
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) split2(w[2 * q], w[2 * q + 1], hi[q], lo[q]);
+#pragma unroll
+      for (int pp = 0; pp < NP / 2; ++pp) {
+        uint32_t bq[4];
+        ldsm4<true>(bq, &xs[16 * k + lane % 8 + 8 * (lane / 8 % 2)]
+                           [16 * pp + 8 * (lane / 16)]);
+        mma_split(intra[2 * pp], hi, lo, bq[0], bq[1]);
+        mma_split(intra[2 * pp + 1], hi, lo, bq[2], bq[3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // y = intra + exp(cum_i) inter, rows ia, ib
+      const int i = r ? ib : ia;
+      if (i >= jn) continue;
+      const float ei = expf(cum_s[i]);
+      __nv_bfloat16* yo = y + (((long long)b * S + s0 + i) * H + h) * P + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < NP; ++nt) {
+        const float* e = intra[nt] + 2 * r;
+        const float* f = inter[nt] + 2 * r;
+        *reinterpret_cast<__nv_bfloat162*>(yo + 8 * nt) =
+            __floats2bfloat162_rn(e[0] + ei * f[0], e[1] + ei * f[1]);
+      }
+    }
+  }
+}
+
+// The output stage's dynamic shared memory beyond 48 KB, allowed once a
+// device, at its first call (a prefill graph's warm-ups run before its
+// capture).
+template <int P, bool GR>
+cudaError_t allow_out_smem() {
+  static std::atomic<unsigned> done{0};  // a bit a device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 32 && (done.load() >> dev & 1u))) return err;
+  err = cudaFuncSetAttribute(ssd_out_kernel_mma<P, GR>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             OutMma<P>::SMEM);
+  if (err == cudaSuccess && dev < 32) done.fetch_or(1u << dev);
+  return err;
+}
+
 template <typename T, int P, bool GR>
 cudaError_t launch(const void* x, const void* dt, const void* A,
                    const void* Bm, const void* Cm, const void* init_state,
@@ -422,19 +758,34 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
   ssd_cb_kernel<T, GR><<<batch * G * nc * ntri, CB_THREADS, 0, stream>>>(
       static_cast<const T*>(Bm), static_cast<const T*>(Cm), cb, S, N, L, nc,
       ntri, G);
-  constexpr int NT = 2048 / P;
-  const int ntile = (N + NT - 1) / NT;
-  ssd_states_kernel<T, P, GR><<<dim3(batch * nc * ntile, H), 128, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const T*>(Bm), cum, st, S, H, N, L, nc, ntile, G);
+  if constexpr (sizeof(T) == 2) {
+    ssd_states_kernel_mma<P, GR><<<dim3(batch * nc, H), 128, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const float*>(dt),
+        static_cast<const T*>(Bm), cum, st, S, H, N, L, nc, G);
+  } else {
+    constexpr int NT = 2048 / P;
+    const int ntile = (N + NT - 1) / NT;
+    ssd_states_kernel<T, P, GR><<<dim3(batch * nc * ntile, H), 128, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const float*>(dt),
+        static_cast<const T*>(Bm), cum, st, S, H, N, L, nc, ntile, G);
+  }
   const int PN = P * N;
   ssd_carry_kernel<<<dim3((PN / 4 + 127) / 128, batch * H), 128, 0, stream>>>(
       st, cum, static_cast<const float*>(init_state),
       static_cast<float*>(final_state), PN, nc, L);
-  ssd_out_kernel<T, P, GR><<<dim3(batch * nc * t64, H), 4 * P, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const T*>(Cm), cum, cb, st, static_cast<T*>(y), S, H, N, L,
-      nc, t64, G);
+  if constexpr (sizeof(T) == 2) {
+    const cudaError_t err = allow_out_smem<P, GR>();
+    if (err != cudaSuccess) return err;
+    ssd_out_kernel_mma<P, GR><<<dim3(batch * nc, H), 256, OutMma<P>::SMEM, stream>>>(
+        static_cast<const T*>(x), static_cast<const float*>(dt),
+        static_cast<const T*>(Cm), cum, cb, st, static_cast<T*>(y), S, H, N, L,
+        nc, G);
+  } else {
+    ssd_out_kernel<T, P, GR><<<dim3(batch * nc * t64, H), 4 * P, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const float*>(dt),
+        static_cast<const T*>(Cm), cum, cb, st, static_cast<T*>(y), S, H, N, L,
+        nc, t64, G);
+  }
   return cudaGetLastError();
 }
 

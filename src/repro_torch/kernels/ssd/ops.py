@@ -22,7 +22,10 @@ head dims p in {16, 32, 64}, n a multiple of 4 with p * n <= 8192, and
 chunk <= 256.
 
 ``LAUNCHES`` counts calls that went to the card, one per ``ssd_scan``
-(the plain and meta paths count nothing).  Every call, on any device,
+(the plain and meta paths count nothing); ``MMA_LAUNCHES`` counts those
+of them that ran the states and output stages on the tensor cores (bf16
+inputs: the float32 operand of each product split into two bf16 parts;
+float32 inputs keep the CUDA-core stages).  Every call, on any device,
 reports ``ssd_work`` to an active cost trace (``kernels.kernel_call``).
 
 The kernel has no backward, so ``ssd_scan`` refuses an input that
@@ -41,6 +44,8 @@ from repro_torch.kernels.ssd.ref import ssd_scan_ref
 
 #: kernel launches since the last ``reset_launches()``
 LAUNCHES = launch_counter("ssd_scan")
+#: of those, the calls whose states and output stages ran on the tensor cores
+MMA_LAUNCHES = launch_counter("ssd_scan_mma")
 HEAD_DIMS = (16, 32, 64)
 MAX_CHUNK = 256
 MAX_STATE = 8192
@@ -49,18 +54,19 @@ F32 = torch.float32
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counter in (LAUNCHES, MMA_LAUNCHES):
+        for name in counter:
+            counter[name] = 0
 
 
 def ssd_work(b, s, h, p, n, chunk: int, elem: int, g: int = 1):
-    """(tensor-core flops, CUDA-core flops, bytes) the chunked scan needs
-    on these rows: per chunk of l real rows, C.B^T over the l(l+1)/2 kept
-    pairs once per sequence and group (a group's heads share its B and C;
-    the bf16 kernel runs it on the tensor cores), and per head the
-    weighted sum over those
-    pairs (p wide), the inter-chunk product and the state update (l*p*n
-    each), 2 flops per multiply-add; the exps, the cumsum and the scalings
+    """(C.B^T flops, the other products' flops, bytes) the chunked scan
+    needs on these rows: per chunk of l real rows, C.B^T over the
+    l(l+1)/2 kept pairs once per sequence and group (a group's heads share
+    its B and C), and per head the weighted sum over those pairs (p wide),
+    the inter-chunk product and the state update (l*p*n each), 2 flops per
+    multiply-add (the bf16 kernel runs all of them on the tensor cores,
+    the float32 kernel on the CUDA cores); the exps, the cumsum and the scalings
     are lower-order and not counted.  Bytes: x, B, C (``elem`` bytes a
     value), dt, A read once, y and the final state written once."""
     full, tail = divmod(s, chunk)
@@ -185,4 +191,6 @@ def _kernel(x, dt, A, B, C, chunk: int, initial_state):
     if code != 0:
         raise RuntimeError(f"SSD kernel launch failed: CUDA error {code}")
     LAUNCHES["ssd_scan"] += 1
+    if x.dtype == torch.bfloat16:
+        MMA_LAUNCHES["ssd_scan_mma"] += 1
     return y, state

@@ -12,7 +12,10 @@ Tolerances: none for the simulator's kernels.  Subset-DP products are
 compared byte for byte and argmins exactly; Bloom indications exactly; the
 exhaustive simulator results on the card equal the CPU's field for field.
 The LM kernels are float32 arithmetic in another summation order: each
-test states its tolerance.  Both kernels refuse inputs that require a
+test states its tolerance; the bf16 SSD's tensor-core stages (each float32
+operand split in two bf16 parts) keep y within 3e-3 and the final state
+within 1e-4 relative L2 of the float32 scan at the three main-path
+shapes.  Both kernels refuse inputs that require a
 gradient, and a reduced train step (which reaches no kernel) on the card
 equals the CPU's at 1e-4.  The grid layer on the card (an exhaustive
 penalty grid, a store round trip) equals the CPU's field for field.  The
@@ -458,6 +461,47 @@ def test_ssd_kernel_matches_plain_on_card(card, b, s, h, p, n, chunk):
             torch.testing.assert_close(y.float(), y_r.float(), rtol=tol,
                                        atol=tol)
             torch.testing.assert_close(st, st_r, rtol=2e-3, atol=2e-3)
+
+
+def _rel_l2(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,n,groups", [
+    (1, 4090, 32, 64, 128, 1), (1, 4090, 112, 64, 64, 2),
+    (1, 32768, 32, 64, 128, 1)], ids=["mamba2-370m-4090",
+                                      "zamba2-7b-instruct-4090",
+                                      "mamba2-370m-32768"])
+def test_ssd_bf16_split_keeps_float32_on_card(card, b, s, h, p, n, groups):
+    """The bf16 kernel (states and output stages on the tensor cores, each
+    float32 operand split in two bf16 parts) against the plain scan in
+    float32 on the same bf16 inputs, chunk 256, with and without an
+    entering state: y within 3e-3 relative L2 (one bf16 rounding of y is
+    about 1.1e-3) and the final state within 1e-4, which a single bf16
+    rounding of W, S_in or w x would break.  A bf16 call counts one
+    tensor-core launch, a float32 call none."""
+    from repro_torch.kernels import ssd
+    x, dt, A, B, C = _ssd_inputs(s + h, b, s, h, p, groups * n,
+                                 torch.bfloat16, card)
+    if groups > 1:
+        B = B.reshape(b, s, groups, n).contiguous()
+        C = C.reshape(b, s, groups, n).contiguous()
+    st0 = torch.randn((b, h, p, n), device=card,
+                      generator=torch.Generator(card).manual_seed(3))
+    f32 = [x.float(), dt, A, B.float(), C.float()]
+    for init in (None, st0):
+        mma = ssd.MMA_LAUNCHES["ssd_scan_mma"]
+        y, st = ssd.ssd_scan(x, dt, A, B, C, chunk=256, initial_state=init)
+        torch.cuda.synchronize()
+        assert ssd.MMA_LAUNCHES["ssd_scan_mma"] == mma + 1
+        y_r, st_r = ssd.ssd_scan_ref(*f32, chunk=256, initial_state=init)
+        assert y.dtype == torch.bfloat16 and y_r.dtype == torch.float32
+        assert _rel_l2(y, y_r) <= 3e-3, _rel_l2(y, y_r)
+        assert _rel_l2(st, st_r) <= 1e-4, _rel_l2(st, st_r)
+    ssd.ssd_scan(*f32, chunk=256)
+    assert ssd.MMA_LAUNCHES["ssd_scan_mma"] == mma + 1
 
 
 @pytest.mark.cuda
@@ -1320,7 +1364,8 @@ def test_prefill_graph_equals_the_eager_body_on_card(card, reduced):
     outputs are tensors of its own, left as they were by the later
     replays.  Counters: one eager run, one capture, two replays, no decode
     counter; the SSD's launch counter rises by one launch a block for
-    each prefill, eager, captured or replayed."""
+    each prefill, eager, captured or replayed, and in bf16 its tensor-core
+    counter with it."""
     from repro_torch import tracing
     from repro_torch.kernels import ssd
     cfg, model, params, shape = _prefill_model(card, reduced)
@@ -1332,8 +1377,12 @@ def test_prefill_graph_equals_the_eager_body_on_card(card, reduced):
             batch = {"tokens": torch.randint(0, cfg.vocab, shape,
                                              device=card, generator=g)}
             n = ssd.LAUNCHES["ssd_scan"]
+            mma = ssd.MMA_LAUNCHES["ssd_scan_mma"]
             got, cache = model.prefill(params, batch)
             assert ssd.LAUNCHES["ssd_scan"] - n == cfg.n_layers
+            # bf16 calls run the tensor-core stages, float32 calls do not
+            assert ssd.MMA_LAUNCHES["ssd_scan_mma"] - mma == (
+                0 if reduced else cfg.n_layers)
             want, mine = model._prefill_eager(params, batch)
             assert torch.equal(got, want)
             assert set(cache) == set(mine) == {"state", "conv"}

@@ -127,6 +127,29 @@ def test_ssd_bf16_inputs_close_to_f32():
     torch.testing.assert_close(st, st32, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_ssd_tensor_core_counter_beside_the_launch_counter(device):
+    """``MMA_LAUNCHES`` counts the card's calls that ran the tensor-core
+    stages (bf16): it is listed in ``kernels.LAUNCH_COUNTERS`` (so a CUDA
+    graph's replay adds to it), ``reset_launches`` zeroes it with
+    ``LAUNCHES``, and a bf16 call on the CPU (the plain version) or on the
+    meta device (shapes only) counts in neither."""
+    from repro_torch import kernels
+    assert any(c is port.MMA_LAUNCHES for c in kernels.LAUNCH_COUNTERS)
+    port.LAUNCHES["ssd_scan"] += 2
+    port.MMA_LAUNCHES["ssd_scan_mma"] += 1
+    port.reset_launches()
+    assert port.LAUNCHES == {"ssd_scan": 0}
+    assert port.MMA_LAUNCHES == {"ssd_scan_mma": 0}
+    args = [a.to(device) for a in _t(_inputs(2, 1, 40, 2, 16, 8))]
+    bf = [a.to(torch.bfloat16) if i in (0, 3, 4) else a
+          for i, a in enumerate(args)]
+    y, st = port.ssd_scan(*bf, chunk=16)
+    assert y.dtype == torch.bfloat16 and y.device.type == device
+    assert port.LAUNCHES == {"ssd_scan": 0}
+    assert port.MMA_LAUNCHES == {"ssd_scan_mma": 0}
+
+
 def test_ssd_cpu_takes_plain_path_without_counting():
     args = _t(_inputs(1, 1, 16, 2, 16, 8))
     before = dict(port.LAUNCHES)
